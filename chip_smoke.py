@@ -4,21 +4,24 @@
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. build    : compile the port's CUDA kernels (csrc/*.cu, one nvcc per
-                source in parallel) and the host hull library; print the
-                build seconds and the card's name and power limit.
+                source in parallel) and the host hull and QEM libraries;
+                print the build seconds and the card's name and power
+                limit.
   2. input    : a gridded unit cube (6 x 40 x 40 x 2 = 19,200 triangles)
                 as build/smoke/in/cube_untextured_mesh.obj and 30,000
                 surface samples with the analytic colour field (seed 0) as
-                build/smoke/in/cube.ply.
-  3. kernels  : every kernel of the main path against its plain torch
-                version on the card, at the main path's shapes: K1 raster
-                (8 views x 512^2, and the 1024^2 atlas bake), K2
-                attention (bf16, T/heads = 1024/8, 256/16, 64/16, batch
-                8), K3 segment sum (R = 1024 with the optimizer's real
-                tables).  CUDA-event medians of the
-                kernel, the plain version and (where one exists) a single
-                PyTorch library call of the same function, beside the
-                bound the card's peak rates give.
+                build/smoke/in/cube.ply; the same cloud alone, with no
+                cached mesh, as build/smoke/in_ply/cube.ply.
+  3. kernels  : every kernel of the main paths against its plain torch
+                version on the card, at the main paths' shapes: K1 raster
+                (8 views x 512^2, and the 1024^2 atlas bake), K4 legacy
+                raster (8 x 512^2 with and without back-face culling, and
+                the optimizer's 8 x 256^2), K2 attention (bf16, T/heads =
+                1024/8, 256/16, 64/16, batch 8), K3 segment sum (R = 1024
+                with the optimizer's real tables).  CUDA-event medians of
+                the kernel, the plain version and (where one exists) a
+                single PyTorch library call of the same function, beside
+                the bound the card's peak rates give.
   4. e2e      : Pipeline.create(configs/default.yaml, device="cuda") with a
                 seeded random 552.8M-parameter bf16 UNet; one warm-up and
                 one timed recon_one_textured_mesh (fresh output dirs, so
@@ -27,6 +30,18 @@ Phases (each prints its own lines; any failure exits non-zero):
                 > 50% of the atlas texels inside the mask non-black, and
                 DDNM must return every known (painted) pixel of the sparse
                 views unchanged.
+  5. geometry : PD_USE_PALLAS_RASTER=1 and one timed recon_one_textured_mesh
+                of the cloud alone on phase 4's Pipeline: SPR geometry
+                (normals, Poisson + PCG, marching cubes, QEM, each timed)
+                at grid 128 and 10,000 faces, then the texture path with K4
+                at project and optimize.  Launches must be K4 = 2, K1 = 1
+                (the bake), K2 = 1600, K3 = 100; the mesh must hold 8,000 to
+                10,000 faces, its vertices lie within 0.01 of the cube on
+                average, >= 99% of its faces face outward, and it must lie
+                within 1e-3 (symmetric vertex-to-surface chamfer) of the
+                port's own CPU reconstruction of the same cloud; the
+                outputs pass phase 4's checks.  Two more reconstructions on
+                the card report the run-to-run difference.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -90,6 +105,102 @@ def check_raster(orast, cof, bbox, res: int, what: str) -> float:
     return err
 
 
+def check_legacy(orast, tri, res: int, what: str) -> float:
+    """K4 against its plain version on the same faces: face ids equal at
+    every pixel (ties included), zbuf and barycentrics within 1e-5 where
+    covered.  Returns the max abs error."""
+    import torch
+
+    got = orast.rasterize_legacy(tri, res)
+    want = orast.rasterize_legacy_plain(tri, res)
+    torch.cuda.synchronize()
+    n_diff = int((got.face_id != want.face_id).sum())
+    if n_diff:
+        fail(f"K4 ({what}) face ids differ at {n_diff} pixels")
+    hit = got.face_id >= 0
+    if not bool(hit.any()):
+        fail(f"K4 ({what}) covered no pixel")
+    err = max(float((got.zbuf[hit] - want.zbuf[hit]).abs().max()),
+              float((got.bary[hit] - want.bary[hit]).abs().max()))
+    if not err <= 1e-5:
+        fail(f"K4 ({what}) zbuf/bary differ by {err}")
+    print(f"[K4 raster_legacy] {what}: V={tri.shape[0]} res={res} "
+          f"F={tri.shape[1]} covered={int(hit.sum())} "
+          f"face_id_mismatches={n_diff} max_abs_err={err:.3g}")
+    return err
+
+
+def to_surface(p, v, f, chunk: int = 512):
+    """Distance from each point p [P,3] to the triangle mesh (v [V,3],
+    f [F,3]), all torch tensors on one device: the nearest of the in-plane
+    projection (when it falls inside a face) and the three edge
+    segments."""
+    import torch
+
+    a, b, c = (v[f[:, i]].double() for i in range(3))
+    n = torch.linalg.cross(b - a, c - a)
+    n = n / n.norm(dim=1, keepdim=True).clamp(min=1e-20)
+    out = []
+    for q in torch.split(p.double(), chunk):
+        q = q[:, None, :]
+        h = ((q - a) * n).sum(-1)
+        x = q - h[..., None] * n
+        inside = torch.ones_like(h, dtype=torch.bool)
+        for u, w in ((a, b), (b, c), (c, a)):
+            inside &= (torch.linalg.cross((w - u).expand_as(x), x - u)
+                       * n).sum(-1) >= 0
+        d = torch.where(inside, h.abs(), torch.full_like(h, float("inf")))
+        for u, w in ((a, b), (b, c), (c, a)):
+            e = w - u
+            t = (((q - u) * e).sum(-1) / (e * e).sum(-1).clamp(min=1e-30)
+                 ).clamp(0.0, 1.0)
+            d = torch.minimum(d, (q - u - t[..., None] * e).norm(dim=-1))
+        out.append(d.min(1).values)
+    return torch.cat(out)
+
+
+def check_outputs(obj: str, cfg, what: str) -> None:
+    """The exported OBJ/MTL/PNG exist, > 50% of the masked atlas texels are
+    non-black, and DDNM kept every known (painted) pixel of the sparse
+    views."""
+    import numpy as np
+
+    from pointdreamer_tpu_torch import io as pio
+
+    base_path = obj[:-4]
+    for ext in (".obj", ".mtl", ".png"):
+        if not os.path.exists(base_path + ext):
+            fail(f"missing {base_path + ext}")
+    atlas = pio.load_png(base_path + ".png")
+    others = os.path.join(os.path.dirname(os.path.dirname(obj)), "others")
+    rgba = pio.load_png(os.path.join(others, "atlas_wo_background.png"))
+    R = cfg.xatlas_texture_res
+    if atlas.shape != (R, R, 3):
+        fail(f"atlas shape {atlas.shape}")
+    inside = rgba[..., 3] > 0
+    nonblack = float((atlas[inside].max(-1) > 0).mean())
+    print(f"[{what}] {obj}: atlas {atlas.shape}, mask "
+          f"{float(inside.mean()):.3f} of texels, non-black inside mask "
+          f"{nonblack:.4f}")
+    if not nonblack > 0.5:
+        fail(f"only {nonblack:.3f} of the masked atlas texels are non-black")
+
+    # DDNM's data consistency: the last step has sigma = 0 and replaces
+    # the known pixels by the sparse image, so every painted pixel of a
+    # sparse view comes back unchanged (up to the 8-bit PNG rounding)
+    n_known, worst = 0, 0.0
+    for i in range(cfg.view_num):
+        sp = pio.load_rgb(os.path.join(others, f"{i}_sparse.png"))
+        inp = pio.load_rgb(os.path.join(others, f"{i}_inpainted.png"))
+        known = sp.max(-1) > 0
+        n_known += int(known.sum())
+        worst = max(worst, float(np.abs(inp[known] - sp[known]).max()))
+    print(f"[{what}] DDNM kept {n_known} known pixels of {cfg.view_num} "
+          f"views within {worst:.4g} (bound 1/255)")
+    if n_known == 0 or not worst <= 1.0 / 255 + 1e-6:
+        fail(f"DDNM changed known pixels by {worst}")
+
+
 def pixel_box_tests(ndc, faces, bbox, res: int) -> int:
     """The (pixel, face) tests a rasterizer needs at the least: for each
     face that can show, the pixels whose centres lie in its own xy box."""
@@ -126,11 +237,13 @@ def main() -> int:
     from pointdreamer_tpu_torch.models.diffusion.attention import (
         attention_qkv, attention_qkv_plain)
     from pointdreamer_tpu_torch.ops import hull as nhull
+    from pointdreamer_tpu_torch.ops import qem as nqem
     from pointdreamer_tpu_torch.ops import raster as orast
     from pointdreamer_tpu_torch.pipeline import optimize as popt
     from pointdreamer_tpu_torch.pipeline import project as pproject
     from pointdreamer_tpu_torch.pipeline import unwrap as punwrap
-    from pointdreamer_tpu_torch.pipeline.geometry import normalize_points
+    from pointdreamer_tpu_torch.pipeline.geometry import (normalize_points,
+                                                          reconstruct_mesh)
     from pointdreamer_tpu_torch.pipeline.pipeline import Pipeline
     from pointdreamer_tpu_torch import io as pio
 
@@ -142,7 +255,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.lib()
     nhull.build()
-    print(f"[build] kernels + hull built in {time.perf_counter() - t0:.2f} s")
+    nqem.build()
+    print(f"[build] kernels + hull + qem built in "
+          f"{time.perf_counter() - t0:.2f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -158,6 +273,10 @@ def main() -> int:
                                       n_points=30000, seed=0)
     mesh = pio.load_obj(ply.replace(".ply", "_untextured_mesh.obj"))
     print(f"[input] {len(mesh['faces'])} triangles, 30000 points -> {ply}")
+    ply_alone = synthetic.write_cube_inputs(
+        os.path.join(work, "in_ply"), n_points=30000, seed=0,
+        with_mesh=False)
+    print(f"[input] the same 30000 points, no cached mesh -> {ply_alone}")
 
     cfg = load_config(os.path.join(REPO, "configs", "default.yaml"))
     table = []
@@ -293,9 +412,44 @@ def main() -> int:
                       replaces="pointdreamer_tpu/kernels/segsum_pallas.py:67",
                       max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain,
                       bound_ms=k3_bound, bound_by=k3_by, library_ms=k3_lib))
-    del proj, uv_map, fg, contrib
+
+    # K4 at project's 8 x 512^2, with and without back-face culling (the
+    # timed row culls, as project does on the port's own reconstruction),
+    # and at the optimizer's 8 x 256^2 view maps (culled)
+    tri_k4 = orast.prepare_legacy(ndc, depth, faces_t, res, False)
+    k4_err = check_legacy(orast, tri_k4, res, "project, no culling")
+    tri_k4 = orast.prepare_legacy(ndc, depth, faces_t, res, True)
+    k4_err = max(k4_err, check_legacy(orast, tri_k4, res, "project, culled"))
+    rr = cfg.optimize_render_res
+    ndc_o, depth_o = rig.transform(verts_t)
+    ndc_o = ((ndc_o - proj.uv_centers) / proj.uv_scales
+             * (1.0 - 2.0 * proj.padding) + 0.5).clamp(0.0, 1.0) * 2.0 - 1.0
+    tri_o = orast.prepare_legacy(ndc_o, depth_o, faces_t, rr, True)
+    k4_err = max(k4_err, check_legacy(orast, tri_o, rr, "optimize"))
+    _, bbox_c = orast.prepare_views(ndc, depth, faces_t, res, True)
+    tests4 = pixel_box_tests(ndc, faces_t, bbox_c, res)
+    k4_ms = cuda_ms(lambda: orast.rasterize_legacy(tri_k4, res))
+    k4_plain = cuda_ms(lambda: orast.rasterize_legacy_plain(tri_k4, res),
+                       reps=3, warmup=1)
+    k4_opt_ms = cuda_ms(lambda: orast.rasterize_legacy(tri_o, rr))
+    # bytes: the 13 floats of each face and view in, 20 B a pixel out;
+    # operations: 16 per (pixel, face) test of each face's own xy box
+    k4_bound, k4_by = bound(tri_k4.numel() * 4 + V * res * res * 20,
+                            16.0 * tests4, FP32_OPS_PER_S)
+    print(f"[K4 raster_legacy] V={V} res={res} F={F} culled "
+          f"pixel_box_tests={tests4} max_abs_err={k4_err:.3g} "
+          f"ms={k4_ms:.4f} plain_ms={k4_plain:.3f} "
+          f"bound_ms={k4_bound:.4f} ({k4_by}); optimize {rr}^2 "
+          f"ms={k4_opt_ms:.4f}")
+    table.append(dict(name="raster_legacy", route="cuda",
+                      source="pointdreamer_tpu_torch/csrc/raster_legacy.cu",
+                      replaces="pointdreamer_tpu/kernels/raster_pallas.py:310",
+                      max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain,
+                      bound_ms=k4_bound, bound_by=k4_by, library_ms=None))
+    del proj, uv_map, fg, contrib, tri_k4, tri_o
 
     # ---- 4. end to end ----------------------------------------------
+    os.environ.pop("PD_USE_PALLAS_RASTER", None)
     cfg.output_path = os.path.join(work, "out_warmup")
     t0 = time.perf_counter()
     pipe = Pipeline.create(cfg, device="cuda", allow_random_diffusion=True)
@@ -330,38 +484,83 @@ def main() -> int:
     for t, key in zip(table, ("raster_binned", "attention_qkv",
                               "segment_sum")):
         t["launches"] = launches[key]
-    base_path = obj[:-4]
-    for ext in (".obj", ".mtl", ".png"):
-        if not os.path.exists(base_path + ext):
-            fail(f"missing {base_path + ext}")
-    atlas = pio.load_png(base_path + ".png")
-    rgba = pio.load_png(os.path.join(os.path.dirname(os.path.dirname(obj)),
-                                     "others", "atlas_wo_background.png"))
-    R = cfg.xatlas_texture_res
-    if atlas.shape != (R, R, 3):
-        fail(f"atlas shape {atlas.shape}")
-    inside = rgba[..., 3] > 0
-    nonblack = float((atlas[inside].max(-1) > 0).mean())
-    print(f"[e2e] {obj}: atlas {atlas.shape}, mask {float(inside.mean()):.3f} "
-          f"of texels, non-black inside mask {nonblack:.4f}")
-    if not nonblack > 0.5:
-        fail(f"only {nonblack:.3f} of the masked atlas texels are non-black")
+    check_outputs(obj, cfg, "e2e")
 
-    # DDNM's data consistency: the last step has sigma = 0 and replaces
-    # the known pixels by the sparse image, so every painted pixel of a
-    # sparse view comes back unchanged (up to the 8-bit PNG rounding)
-    others = os.path.join(os.path.dirname(os.path.dirname(obj)), "others")
-    n_known, worst = 0, 0.0
-    for i in range(cfg.view_num):
-        sp = pio.load_rgb(os.path.join(others, f"{i}_sparse.png"))
-        inp = pio.load_rgb(os.path.join(others, f"{i}_inpainted.png"))
-        known = sp.max(-1) > 0
-        n_known += int(known.sum())
-        worst = max(worst, float(np.abs(inp[known] - sp[known]).max()))
-    print(f"[e2e] DDNM kept {n_known} known pixels of {cfg.view_num} views "
-          f"within {worst:.4g} (bound 1/255)")
-    if n_known == 0 or not worst <= 1.0 / 255 + 1e-6:
-        fail(f"DDNM changed known pixels by {worst}")
+    # ---- 5. geometry from the cloud, K4 on ---------------------------
+    os.environ["PD_USE_PALLAS_RASTER"] = "1"
+    cfg.output_path = os.path.join(work, "out_ply")
+    timer = StageTimer(None, sync=True)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    obj = pipe.recon_one_textured_mesh(ply_alone, timer=timer)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    os.environ.pop("PD_USE_PALLAS_RASTER")
+    stages = {k: round(v, 4) for k, v in timer.times.items()}
+    print(f"[geometry] timed run {total:.3f} s stages {json.dumps(stages)}")
+    print(f"[geometry] launches {json.dumps(launches)}")
+    want_launches = {"raster_legacy": 2, "raster_binned": 1,
+                     "attention_qkv": 1600, "segment_sum": 100}
+    if launches != want_launches:
+        fail(f"launches {launches}, not {want_launches}")
+    table[-1]["launches"] = launches["raster_legacy"]
+    check_outputs(obj, cfg, "geometry")
+
+    # the reconstructed mesh (normalized frame), against the cube
+    geo = pio.load_obj(os.path.join(os.path.dirname(os.path.dirname(obj)),
+                                    "geo", "untextured.obj"))
+    v_np, f_np = geo["vertices"].astype(np.float32), geo["faces"]
+    nf = len(f_np)
+    xyz_a, _ = pio.read_ply_xyzrgb(ply_alone)
+    xyz_n, _, _ = normalize_points(xyz_a)
+    lo, hi = xyz_n.min(0), xyz_n.max(0)
+    d_out = np.maximum(np.maximum(lo - v_np, v_np - hi), 0.0)
+    d_in = np.minimum(v_np - lo, hi - v_np).min(1)
+    dist = np.where(d_out.max(1) > 0, np.linalg.norm(d_out, axis=1), d_in)
+    tri = v_np[f_np]
+    nrm = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    outward = float(((nrm * (tri.mean(1) - (lo + hi) / 2)).sum(1) > 0)
+                    .mean())
+    print(f"[geometry] mesh {len(v_np)} vertices {nf} faces; distance to "
+          f"the cube mean {dist.mean():.5f} p95 "
+          f"{np.percentile(dist, 95):.5f}; outward faces {outward:.5f}")
+    if not 0.8 * cfg.target_face_num <= nf <= cfg.target_face_num:
+        fail(f"{nf} faces, not within 0.8-1.0 x {cfg.target_face_num}")
+    if not dist.mean() < 0.01:
+        fail(f"mean vertex distance to the cube {dist.mean()}")
+    if not outward >= 0.99:
+        fail(f"only {outward} of the faces face outward")
+
+    # against the port's own CPU run on the same cloud, and a second run
+    # on the card (run to run)
+    args = (xyz_n, cfg.geo_from, cfg.grid_res, cfg.target_face_num)
+    kw = dict(refine_iters=cfg.refine_vertex_iters,
+              screen_weight=cfg.spr_screen_weight)
+    t0 = time.perf_counter()
+    v_cpu, f_cpu = reconstruct_mesh(*args, device="cpu", **kw)
+    t_cpu = time.perf_counter() - t0
+    v_1, f_1 = reconstruct_mesh(*args, device=dev, **kw)
+    v_2, f_2 = reconstruct_mesh(*args, device=dev, **kw)
+
+    def same(f_a, f_b):
+        return f_a.shape == f_b.shape and bool((f_a == f_b).all())
+
+    tv, tf = torch.as_tensor(v_np, device=dev), torch.as_tensor(f_np,
+                                                                device=dev)
+    cv = torch.as_tensor(v_cpu, device=dev)
+    cf = torch.as_tensor(f_cpu, device=dev)
+    chamfer = 0.5 * float(to_surface(tv, cv, cf).mean()
+                          + to_surface(cv, tv, tf).mean())
+    dv_2 = float(np.abs(v_2 - v_1).max()) if same(f_1, f_2) \
+        else float("nan")
+    print(f"[geometry] card vs CPU ({t_cpu:.2f} s on the host): chamfer "
+          f"{chamfer:.3g}, {len(f_cpu)} CPU faces, same faces "
+          f"{same(f_cpu, f_np)}; two more card runs: the pipeline's faces "
+          f"{same(f_1, f_np)}, same faces as each other {same(f_1, f_2)}, "
+          f"max vertex diff {dv_2}")
+    if not chamfer < 1e-3:
+        fail(f"card mesh {chamfer} from the CPU mesh (bound 1e-3)")
 
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

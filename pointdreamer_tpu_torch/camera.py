@@ -80,7 +80,7 @@ class CameraRig(NamedTuple):
 def make_camera_rig(num_views: int = 8, distance: float = 1.6,
                     res: int = 512, fov_deg: float = 45.0,
                     distribution: str = "fibonacci_sphere",
-                    device="cpu") -> CameraRig:
+                    device="cuda") -> CameraRig:
     if distribution == "fibonacci_sphere":
         eyes = fibonacci_sphere(num_views, distance)
     elif distribution in ("blender", "exact_blender"):

@@ -3,8 +3,10 @@
     python -m pointdreamer_tpu_torch.demo --config configs/default.yaml \\
         --pc_file <dir>/cube.ply
 
-with `<dir>/cube_untextured_mesh.obj` beside the cloud (this slice of the
-port textures a cached mesh).  Writes
+The mesh is reconstructed from the cloud (screened Poisson), unless a
+cached `<dir>/cube_untextured_mesh.obj` sits beside it.  With
+PD_USE_PALLAS_RASTER=1 in the environment the project and optimize stages
+rasterize on K4 instead of K1, as the JAX package's switch does.  Writes
 output/<name>_<cfgtag>/models/model_normalized.{obj,mtl,png}.
 """
 from __future__ import annotations

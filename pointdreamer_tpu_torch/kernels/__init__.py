@@ -6,9 +6,10 @@ process per source, all started together), linked into one shared library
 in the git-ignored build directory `<repo>/build/pointdreamer_tpu_torch/`,
 and loaded with ctypes.  Nothing here runs at import time.
 
-Each wrapper (ops/raster.py, models/diffusion/attention.py,
+Each wrapper (ops/raster.py for K1 and K4, models/diffusion/attention.py,
 pipeline/optimize.py) adds one to its entry of `LAUNCHES` where it
-launches its kernel, and nowhere else.
+launches its kernel, and nowhere else.  `build_host` compiles the host
+C++ libraries (csrc/host/*.cpp) with g++ into the same directory.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
                          "pointdreamer_tpu_torch")
-SOURCES = ("raster.cu", "attention.cu", "segsum.cu")
+SOURCES = ("raster.cu", "raster_legacy.cu", "attention.cu", "segsum.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -37,8 +38,8 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12        # tensor-core bf16
 FP32_OPS_PER_S = 67e12         # fp32 outside the tensor cores
 
-LAUNCHES: Dict[str, int] = {"raster_binned": 0, "attention_qkv": 0,
-                            "segment_sum": 0}
+LAUNCHES: Dict[str, int] = {"raster_binned": 0, "raster_legacy": 0,
+                            "attention_qkv": 0, "segment_sum": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -49,6 +50,7 @@ _SIGNATURES = {
     "pd_bin_count": [_P, _I, _I, _I, _P, _P],
     "pd_bin_fill": [_P, _I, _I, _I, _P, _P, _P, _P],
     "pd_raster_tiles": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "pd_raster_legacy": [_P, _I, _I, _I, _P, _P, _P, _P],
     "pd_attention_qkv": [_P, _P, _I, _I, _I, ctypes.c_float, _P],
     "pd_segment_sum": [_P, _P, ctypes.c_int64, _I, _P, _P],
 }
@@ -105,6 +107,28 @@ def build() -> str:
         os.replace(so, out)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def build_host(source: str) -> str:
+    """Compile the host C++ library csrc/host/<source> with g++ into
+    BUILD_DIR/libpd_<stem>.so (rebuilt when the source is newer); returns
+    its path.  A failed build raises."""
+    src = os.path.join(CSRC, "host", source)
+    out = os.path.join(BUILD_DIR,
+                       f"libpd_{os.path.splitext(source)[0]}.so")
+    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        subprocess.run(["g++", "-O3", "-fPIC", "-shared", "-std=c++17", src,
+                        "-o", tmp], check=True)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
     return out
 
 

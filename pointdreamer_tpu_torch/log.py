@@ -59,7 +59,8 @@ class StageTimer:
                 self.logger.info(f"{name}: {dt:.3f} s")
 
     def total(self) -> float:
-        return sum(self.times.values())
+        """Sum of the top-level stages ('a.b' is a part of stage 'a')."""
+        return sum(v for k, v in self.times.items() if "." not in k)
 
     def report(self) -> str:
         lines = [f"  {k}: {self.times[k]:.3f} s" for k in self.order]

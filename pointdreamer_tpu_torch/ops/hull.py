@@ -9,36 +9,19 @@ algorithm."""
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-import tempfile
 import threading
 from typing import Optional
 
 import numpy as np
 
-from ..kernels import BUILD_DIR, CSRC
+from ..kernels import build_host
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
 
 
 def build() -> str:
-    src = os.path.join(CSRC, "host", "hull.cpp")
-    out = os.path.join(BUILD_DIR, "libpd_hull.so")
-    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run(["g++", "-O3", "-fPIC", "-shared", "-std=c++17", src,
-                        "-o", tmp], check=True)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
+    return build_host("hull.cpp")
 
 
 def _load() -> ctypes.CDLL:

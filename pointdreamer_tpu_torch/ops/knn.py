@@ -6,6 +6,17 @@ from typing import Optional, Tuple
 import torch
 
 
+def _cross(q: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """q . ref^T in full fp32 whatever the TF32 switches say (the JAX
+    package asks for Precision.HIGHEST: distance ranks are wrong in
+    reduced precision), written out as broadcast multiply-adds over the 2
+    or 3 coordinates."""
+    out = q[:, :1] * ref[None, :, 0]
+    for d in range(1, q.shape[1]):
+        out = out + q[:, d:d + 1] * ref[None, :, d]
+    return out
+
+
 def knn(query: torch.Tensor, ref: torch.Tensor, k: int,
         ref_valid: Optional[torch.Tensor] = None, chunk: int = 2048
         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -18,8 +29,8 @@ def knn(query: torch.Tensor, ref: torch.Tensor, k: int,
         r2 = torch.where(ref_valid, r2, torch.full_like(r2, float("inf")))
     dists, idxs = [], []
     for q in torch.split(query, chunk):
-        cross = q @ ref.T
-        d2 = (q * q).sum(-1, keepdim=True) - 2.0 * cross + r2[None, :]
+        d2 = (q * q).sum(-1, keepdim=True) - 2.0 * _cross(q, ref) \
+            + r2[None, :]
         if k == 1:
             idx = torch.argmin(d2, dim=-1, keepdim=True)
             dists.append(torch.gather(d2, -1, idx))
@@ -29,6 +40,13 @@ def knn(query: torch.Tensor, ref: torch.Tensor, k: int,
             dists.append(-neg)
             idxs.append(idx)
     return torch.cat(dists).clamp(min=0.0), torch.cat(idxs)
+
+
+def nearest(query: torch.Tensor, ref: torch.Tensor,
+            ref_valid: Optional[torch.Tensor] = None, chunk: int = 2048):
+    """1-NN: (sq_dists [M], indices [M])."""
+    d, i = knn(query, ref, 1, ref_valid, chunk)
+    return d[:, 0], i[:, 0]
 
 
 def knn_2d_pixels(query_pix: torch.Tensor, ref_pix: torch.Tensor, k: int,

@@ -1,21 +1,31 @@
-"""Triangle z-buffer rasterization (twin of ops/raster.py + K1).
+"""Triangle z-buffer rasterization (twin of ops/raster.py + K1 and K4).
 
-`rasterize_views` projects triangles to pixel space, computes the 12
-affine coefficients per face exactly as the JAX package's
-`_face_coefficients` does (barycentrics l_i = A_i x + B_i y + C_i and the z
-plane, evaluated at pixel centres x+.5, y+.5), and hands them to
-`rasterize_coefficients`: on a CUDA tensor that launches the binned Hopper
-kernel (csrc/raster.cu, replacing kernels/raster_pallas.py::
-rasterize_views_binned_pallas); on a CPU tensor it runs the plain torch
-version below.
+Two routes, chosen as the JAX package's `rasterize_views` chooses:
 
-A pixel is inside when all l >= 0 and z > 0.  Among inside faces the
-lexicographic minimum of (z, face_id) wins, so exact z ties go to the
-lower face id in both versions.  Outputs: face_id int32 (-1 background),
-zbuf f32 (inf background), bary f32 [..., 3] (zeros background).
+  binned (K1, the default): `prepare_views` projects triangles to pixel
+      space and computes the 12 affine coefficients per face exactly as the
+      JAX package's `_face_coefficients` does (barycentrics
+      l_i = A_i x + B_i y + C_i and the z plane, at pixel centres x+.5,
+      y+.5); `rasterize_coefficients` launches the binned Hopper kernel
+      (csrc/raster.cu, replacing kernels/raster_pallas.py::
+      rasterize_views_binned_pallas) on a CUDA tensor and runs the plain
+      torch version on a CPU tensor.
+  legacy (K4, when PD_USE_PALLAS_RASTER=1 and res % 128 == 0, read at call
+      time): `prepare_legacy` packs each face's pixel-space corners, depths
+      and xy box; `rasterize_legacy` launches csrc/raster_legacy.cu
+      (replacing kernels/raster_pallas.py::rasterize_pallas), or runs its
+      plain version on a CPU tensor.  Edge functions are evaluated per
+      pixel, w0 = (cx-bx)(y-by) - (cy-by)(x-bx), l_i = w_i / area.
+
+A pixel is inside when all l >= 0 and z > 0 (K4 also needs |area| >
+1e-12).  Among inside faces the lexicographic minimum of (z, face_id)
+wins, so exact z ties go to the lower face id in every version.  Outputs:
+face_id int32 (-1 background), zbuf f32 (inf background), bary f32
+[..., 3] (zeros background).
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -83,14 +93,16 @@ def face_pixel_bbox(tri_xy: torch.Tensor, valid: torch.Tensor, res: int
     return torch.where(keep[..., None], box, empty)
 
 
-def rasterize_coefficients_plain(cof: torch.Tensor, bbox: torch.Tensor,
-                                 res: int, chunk: int = 256) -> RasterOut:
-    """Plain torch version of K1: every face against the pixels of its
-    chunk's bounding rectangle, faces in id order with a strict `<`, so
-    the lower id keeps an exact z tie — the same (z, face_id)
-    lexicographic minimum as the kernel."""
-    V, F = cof.shape[:2]
-    dev = cof.device
+def _zbuffer_plain(evaluate, bbox: torch.Tensor, res: int,
+                   chunk: int = 256) -> RasterOut:
+    """The plain versions' z-buffer: every face against the pixels of its
+    chunk's bounding rectangle (bbox [V,F,4] inclusive pixel rectangles),
+    faces in id order with a strict `<`, so the lower id keeps an exact z
+    tie — the (z, face_id) lexicographic minimum of the kernels.
+    `evaluate(v, c0, n, xs, ys)` gives (l0, l1, l2, z, inside) [n,h,w] of
+    faces c0..c0+n-1 of view v at pixel centres xs [1,1,w], ys [1,h,1]."""
+    V, F = bbox.shape[:2]
+    dev = bbox.device
     z = torch.full((V, res, res), _BIG, dtype=torch.float32, device=dev)
     fid = torch.full((V, res, res), -1, dtype=torch.int32, device=dev)
     bary = torch.zeros((V, res, res, 3), dtype=torch.float32, device=dev)
@@ -116,15 +128,10 @@ def rasterize_coefficients_plain(cof: torch.Tensor, bbox: torch.Tensor,
             if len(b) == 0:
                 c0 += n
                 continue
-            c = cof[v, c0:c0 + n][:, :, None, None]           # [n,12,1,1]
             xs = centres[x0:x1 + 1][None, None, :]
             ys = centres[y0:y1 + 1][None, :, None]
-            l0 = c[:, 0] * xs + c[:, 1] * ys + c[:, 2]
-            l1 = c[:, 3] * xs + c[:, 4] * ys + c[:, 5]
-            l2 = c[:, 6] * xs + c[:, 7] * ys + c[:, 8]
-            zk = c[:, 9] * xs + c[:, 10] * ys + c[:, 11]
-            inside = ((l0 >= 0) & (l1 >= 0) & (l2 >= 0) & (zk > 0)
-                      & nonempty[v, c0:c0 + n][:, None, None])
+            l0, l1, l2, zk, inside = evaluate(v, c0, n, xs, ys)
+            inside = inside & nonempty[v, c0:c0 + n][:, None, None]
             zc = torch.where(inside, zk, torch.full_like(zk, _BIG))
             best = torch.argmin(zc, dim=0, keepdim=True)       # first min
             bz = torch.gather(zc, 0, best)[0]
@@ -140,6 +147,20 @@ def rasterize_coefficients_plain(cof: torch.Tensor, bbox: torch.Tensor,
             c0 += n
     z = torch.where(fid >= 0, z, torch.full_like(z, float("inf")))
     return RasterOut(face_id=fid, zbuf=z, bary=bary)
+
+
+def rasterize_coefficients_plain(cof: torch.Tensor, bbox: torch.Tensor,
+                                 res: int) -> RasterOut:
+    """Plain torch version of K1 (affine coefficients cof [V,F,12])."""
+    def evaluate(v, c0, n, xs, ys):
+        c = cof[v, c0:c0 + n][:, :, None, None]               # [n,12,1,1]
+        l0 = c[:, 0] * xs + c[:, 1] * ys + c[:, 2]
+        l1 = c[:, 3] * xs + c[:, 4] * ys + c[:, 5]
+        l2 = c[:, 6] * xs + c[:, 7] * ys + c[:, 8]
+        zk = c[:, 9] * xs + c[:, 10] * ys + c[:, 11]
+        return l0, l1, l2, zk, (l0 >= 0) & (l1 >= 0) & (l2 >= 0) & (zk > 0)
+
+    return _zbuffer_plain(evaluate, bbox, res)
 
 
 def tile_rects(bbox: torch.Tensor) -> torch.Tensor:
@@ -227,13 +248,109 @@ def prepare_views(verts_ndc: torch.Tensor, verts_depth: torch.Tensor,
     return cof, bbox
 
 
-def rasterize_views(verts_ndc: torch.Tensor, verts_depth: torch.Tensor,
-                    faces: torch.Tensor, res: int,
-                    cull_backface: bool = False) -> RasterOut:
-    """verts_ndc [V,N,2], verts_depth [V,N] -> stacked RasterOut."""
+def rasterize_binned(verts_ndc: torch.Tensor, verts_depth: torch.Tensor,
+                     faces: torch.Tensor, res: int,
+                     cull_backface: bool = False) -> RasterOut:
+    """The binned route (K1) whatever the environment says."""
     cof, bbox = prepare_views(verts_ndc, verts_depth, faces, res,
                               cull_backface)
     return rasterize_coefficients(cof, bbox, res)
+
+
+# ---- K4: the legacy full-stream rasterizer -----------------------------
+
+LEGACY_WIDTH = 13       # ax ay bx by cx cy z0 z1 z2 x0 y0 x1 y1
+
+
+def prepare_legacy(verts_ndc: torch.Tensor, verts_depth: torch.Tensor,
+                   faces: torch.Tensor, res: int,
+                   cull_backface: bool = False) -> torch.Tensor:
+    """[V,N,2] NDC + [V,N] depth + [F,3] faces -> tri [V,F,13]: pixel-space
+    corners, corner depths and the corners' continuous xy box, as
+    kernels/raster_pallas.py::rasterize_pallas prepares them (culled faces
+    keep front = signed area < 0; the others move to -1e6, where their
+    area is 0 and their box lies off screen)."""
+    faces = faces.long()
+    px = (verts_ndc * 0.5 + 0.5) * res
+    tri_xy = px[:, faces]                     # [V,F,3,2]
+    tri_z = verts_depth[:, faces]             # [V,F,3]
+    if cull_backface:
+        e1 = tri_xy[:, :, 1] - tri_xy[:, :, 0]
+        e2 = tri_xy[:, :, 2] - tri_xy[:, :, 0]
+        signed = e1[..., 0] * e2[..., 1] - e1[..., 1] * e2[..., 0]
+        tri_xy = torch.where((signed < 0.0)[..., None, None], tri_xy,
+                             torch.full_like(tri_xy, -1e6))
+    V, F = tri_xy.shape[:2]
+    return torch.cat([tri_xy.reshape(V, F, 6), tri_z, tri_xy.amin(2),
+                      tri_xy.amax(2)], -1).contiguous()
+
+
+def rasterize_legacy_plain(tri: torch.Tensor, res: int) -> RasterOut:
+    """Plain torch version of K4, in the kernel's order of operations."""
+    ax, ay, bx, by, cx, cy, z0, z1, z2 = [
+        tri[..., i] for i in range(9)]
+    area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
+    ok = area.abs() > 1e-12
+    inv = torch.where(ok, 1.0 / torch.where(ok, area, torch.ones_like(area)),
+                      torch.zeros_like(area))
+    bbox = face_pixel_bbox(tri[..., :6].reshape(tri.shape[:2] + (3, 2)), ok,
+                           res).contiguous()
+
+    def evaluate(v, c0, n, xs, ys):
+        def g(a):
+            return a[v, c0:c0 + n][:, None, None]
+
+        Ax, Ay, Bx, By, Cx, Cy = g(ax), g(ay), g(bx), g(by), g(cx), g(cy)
+        w0 = (Cx - Bx) * (ys - By) - (Cy - By) * (xs - Bx)
+        w1 = (Ax - Cx) * (ys - Cy) - (Ay - Cy) * (xs - Cx)
+        w2 = (Bx - Ax) * (ys - Ay) - (By - Ay) * (xs - Ax)
+        ia = g(inv)
+        l0, l1, l2 = w0 * ia, w1 * ia, w2 * ia
+        zk = l0 * g(z0) + l1 * g(z1) + l2 * g(z2)
+        inside = (l0 >= 0) & (l1 >= 0) & (l2 >= 0) & g(ok) & (zk > 0)
+        return l0, l1, l2, zk, inside
+
+    return _zbuffer_plain(evaluate, bbox, res)
+
+
+def _rasterize_legacy_cuda(tri: torch.Tensor, res: int) -> RasterOut:
+    kernels.require_cuda_tensor(tri, "tri", torch.float32, 3)
+    V, F = tri.shape[:2]
+    if tri.shape[2] != LEGACY_WIDTH:
+        raise ValueError(f"raster_legacy: tri {tuple(tri.shape)}")
+    if res % TILE:
+        raise ValueError(f"raster_legacy: res {res} not a multiple of {TILE}")
+    dev = tri.device
+    zbuf = torch.empty((V, res, res), dtype=torch.float32, device=dev)
+    fid = torch.empty((V, res, res), dtype=torch.int32, device=dev)
+    bary = torch.empty((V, res, res, 3), dtype=torch.float32, device=dev)
+    kernels.check(kernels.lib().pd_raster_legacy(
+        tri.data_ptr(), V, F, res, zbuf.data_ptr(), fid.data_ptr(),
+        bary.data_ptr(), kernels.stream_ptr(dev)), "raster_legacy")
+    kernels.LAUNCHES["raster_legacy"] += 1
+    return RasterOut(face_id=fid, zbuf=zbuf, bary=bary)
+
+
+def rasterize_legacy(tri: torch.Tensor, res: int) -> RasterOut:
+    """K4 wrapper: tri [V,F,13] f32 from `prepare_legacy`.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel (every view in one
+    launch)."""
+    if tri.device.type == "cpu":
+        return rasterize_legacy_plain(tri, res)
+    return _rasterize_legacy_cuda(tri, res)
+
+
+def rasterize_views(verts_ndc: torch.Tensor, verts_depth: torch.Tensor,
+                    faces: torch.Tensor, res: int,
+                    cull_backface: bool = False) -> RasterOut:
+    """verts_ndc [V,N,2], verts_depth [V,N] -> stacked RasterOut.  The JAX
+    package's switch, read at call time: PD_USE_PALLAS_RASTER=1 sends a
+    res % 128 == 0 call to K4, everything else goes to K1."""
+    if os.environ.get("PD_USE_PALLAS_RASTER") == "1" and res % 128 == 0:
+        return rasterize_legacy(prepare_legacy(
+            verts_ndc, verts_depth, faces, res, cull_backface), res)
+    return rasterize_binned(verts_ndc, verts_depth, faces, res,
+                            cull_backface)
 
 
 def interpolate(attrs: torch.Tensor, faces: torch.Tensor,

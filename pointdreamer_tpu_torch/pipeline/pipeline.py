@@ -1,11 +1,13 @@
 """End-to-end orchestration: coloured point cloud -> textured mesh (twin
 of pipeline/pipeline.py; reference demo.py:38-497).
 
-This slice runs on a cached external mesh: `<name>_untextured_mesh.obj`
-beside `<name>.ply` (original, un-normalized coordinates).  Geometry
-reconstruction from the cloud is the next port slice; without a cached
-mesh `recon_one_textured_mesh` raises NotImplementedError.  Stage caches:
-the mesh's unwrap (`geo/unwrap_<R>.npz`) and the inpainted views
+Geometry, in the JAX package's order: a cached external mesh
+`<name>_untextured_mesh.obj` beside `<name>.ply` (original, un-normalized
+coordinates; back faces are then not culled, its winding being unknown),
+else the shape's own `geo/untextured.obj` from an earlier run, else
+`pipeline/geometry.py::reconstruct_mesh` from the cloud (SPR when no POCO
+network is configured), saved on the io thread.  Stage caches: the mesh,
+its unwrap (`geo/unwrap_<R>.npz`) and the inpainted views
 (`others/<i>_inpainted.png`).  The unwrap and the HPR hulls run on a host
 thread while the device works.
 """
@@ -92,6 +94,8 @@ class Pipeline:
         tiny one).  The UNet computes in bf16 on the card and in fp32 on
         the CPU."""
         dev = resolve_device(device)
+        if cfg.geo_from == "POCO" and cfg.poco_checkpoint:
+            raise NotImplementedError("POCO geometry: a later port slice")
         logger = get_logger(log_file)
         rig = make_camera_rig(cfg.view_num, cfg.cam_distance, cfg.cam_res,
                               cfg.cam_fov_deg, cfg.camera_distribution,
@@ -147,15 +151,31 @@ class Pipeline:
             pio.save_colored_pc_ply(xyz_n, rgb.astype(np.float32) / 255.0,
                                     os.path.join(out_root, "input_pc.ply"))
 
-        # ---- geometry (cached external mesh) ---------------------------
+        # ---- geometry (cached) ----------------------------------------
         with timer.stage("geometry"):
             cached_geo = pc_file.replace(".ply", "_untextured_mesh.obj")
-            if not os.path.exists(cached_geo):
-                raise NotImplementedError(
-                    "geometry reconstruction: next port slice")
-            m = pio.load_obj(cached_geo)
-            verts = (m["vertices"] - center) / scale
-            faces = m["faces"]
+            own_geo = os.path.join(geo_dir, "untextured.obj")
+            external_mesh = os.path.exists(cached_geo)
+            if external_mesh:
+                m = pio.load_obj(cached_geo)
+                verts = (m["vertices"] - center) / scale
+                faces = m["faces"]
+            elif os.path.exists(own_geo):
+                m = pio.load_obj(own_geo)
+                verts, faces = m["vertices"], m["faces"]
+            else:
+                verts, faces = pgeo.reconstruct_mesh(
+                    xyz_n, cfg.geo_from, cfg.grid_res, cfg.target_face_num,
+                    cfg.noise_stddev if not cfg.input_already_noisy else None,
+                    smooth_mesh=cfg.smooth_mesh,
+                    refine_iters=cfg.refine_vertex_iters,
+                    iso_method=cfg.iso_method,
+                    screen_weight=cfg.spr_screen_weight, device=dev,
+                    timer=timer)
+                # read only by later runs: written on the io thread
+                # (flush_async_io at export guards reuse)
+                pio.submit_async_io(
+                    lambda v=verts, f=faces: pio.save_obj(v, f, own_geo))
 
         verts_p, faces_p, _, n_faces = _pad_mesh(verts, faces)
         xyz_p, colors_p, point_mask = _pad_points(
@@ -188,9 +208,9 @@ class Pipeline:
                 self.rig, verts_t, faces_t, torch.as_tensor(xyz_p, device=dev),
                 crop=cfg.crop_img, padding=cfg.crop_padding,
                 depth_offset=cfg.depth_offset,
-                # an external mesh's winding is unknown (as in the JAX
-                # package, which culls only its own reconstructions)
-                cull_backface=False)
+                # an external mesh's winding is unknown: only the port's
+                # own reconstructions are culled, as in the JAX package
+                cull_backface=not external_mesh)
             proj = proj._replace(
                 point_validation=proj.point_validation
                 & torch.as_tensor(point_mask, device=dev)[None, :])

@@ -713,7 +713,7 @@ def unwrap(vertices: np.ndarray, faces: np.ndarray,
 
 
 def bake_atlas(vertices, faces, uvs, face_uv_idx, resolution: int,
-               device="cpu") -> Dict[str, torch.Tensor]:
+               device="cuda") -> Dict[str, torch.Tensor]:
     """Rasterize the UV layout into per-texel buffers (depth = 1, no
     culling): 'gb_pos' [R,R,3] world position per texel, 'mask' [R,R]
     coverage, 'per_atlas_pixel_face_id' [R,R] int32 (-1 empty).  Texel
@@ -722,7 +722,9 @@ def bake_atlas(vertices, faces, uvs, face_uv_idx, resolution: int,
     ndc = uvs_t * 2.0 - 1.0
     depth = torch.ones((uvs_t.shape[0],), dtype=torch.float32, device=device)
     fuv = torch.as_tensor(np.asarray(face_uv_idx), device=device).long()
-    out = orast.rasterize_views(ndc[None], depth[None], fuv, resolution)
+    # the binned route (K1) whatever PD_USE_PALLAS_RASTER says: the JAX
+    # package's bake calls its tiled rasterizer directly
+    out = orast.rasterize_binned(ndc[None], depth[None], fuv, resolution)
     fid = out.face_id[0]
     mask = fid >= 0
     verts = torch.as_tensor(np.asarray(vertices, np.float32), device=device)

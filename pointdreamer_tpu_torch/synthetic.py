@@ -68,12 +68,13 @@ def cube_mesh(n_div: int = 40) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def write_cube_inputs(out_dir: str, n_div: int = 40, n_points: int = 30000,
-                      seed: int = 0) -> str:
-    """Write <out_dir>/cube.ply and the cached mesh
+                      seed: int = 0, with_mesh: bool = True) -> str:
+    """Write <out_dir>/cube.ply and, with `with_mesh`, the cached mesh
     <out_dir>/cube_untextured_mesh.obj; returns the .ply path."""
     os.makedirs(out_dir, exist_ok=True)
-    v, f = cube_mesh(n_div)
-    pio.save_obj(v, f, os.path.join(out_dir, "cube_untextured_mesh.obj"))
+    if with_mesh:
+        v, f = cube_mesh(n_div)
+        pio.save_obj(v, f, os.path.join(out_dir, "cube_untextured_mesh.obj"))
     pts, col = cube_cloud(n_points, seed)
     ply = os.path.join(out_dir, "cube.ply")
     pio.save_colored_pc_ply(pts, col, ply)

@@ -44,7 +44,7 @@ def test_camera_rig_matches_jax():
     rng = np.random.default_rng(0)
     pts = rng.uniform(-0.5, 0.5, (500, 3)).astype(np.float32)
     j = jcam.make_camera_rig(8, 1.6, 512)
-    t = tcam.make_camera_rig(8, 1.6, 512)
+    t = tcam.make_camera_rig(8, 1.6, 512, device="cpu")
     np.testing.assert_allclose(t.eyes.numpy(), np.asarray(j.eyes), atol=1e-6)
     np.testing.assert_allclose(t.rot.numpy(), np.asarray(j.rot), atol=1e-6)
     jn, jd = j.transform(pts)

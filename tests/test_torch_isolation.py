@@ -32,6 +32,10 @@ def _port_sources():
 
 def test_port_imports_nothing_forbidden():
     found = []
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for mod in ("ops/sdf.py", "ops/iso.py", "ops/mc_table.py", "ops/qem.py",
+                "ops/knn.py", "pipeline/geometry.py", "baselines/spr.py"):
+        assert os.path.join("pointdreamer_tpu_torch", mod) in scanned
     for path in _port_sources():
         with open(path) as fh:
             tree = ast.parse(fh.read(), path)
@@ -60,6 +64,30 @@ def test_create_without_a_device_needs_cuda():
         Pipeline.create(cfg)
 
 
+@pytest.mark.parametrize("call", ["camera_rig", "bake_atlas",
+                                  "reconstruct_mesh", "spr_baseline"])
+def test_helpers_without_a_device_need_cuda(call):
+    # the helpers an entry point calls default to device='cuda' too
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from pointdreamer_tpu_torch.baselines.spr import recon_one_shape_SPR
+    from pointdreamer_tpu_torch.camera import make_camera_rig
+    from pointdreamer_tpu_torch.pipeline.geometry import reconstruct_mesh
+    from pointdreamer_tpu_torch.pipeline.unwrap import bake_atlas
+
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-0.5, 0.5, (100, 3)).astype(np.float32)
+    tri = np.arange(6).reshape(2, 3)
+    run = {"camera_rig": lambda: make_camera_rig(8, 1.6, 64),
+           "bake_atlas": lambda: bake_atlas(pts[:6], tri, pts[:6, :2], tri,
+                                            32),
+           "reconstruct_mesh": lambda: reconstruct_mesh(pts, "SPR", 16, 100),
+           "spr_baseline": lambda: recon_one_shape_SPR(pts, None, 100, 16)}
+    with pytest.raises((RuntimeError, AssertionError),
+                       match="CUDA|Torch not compiled"):
+        run[call]()
+
+
 def _wrapper_cases():
     rng = np.random.default_rng(0)
     ndc = torch.as_tensor(rng.uniform(-1, 1, (1, 30, 2)).astype(np.float32))
@@ -71,18 +99,21 @@ def _wrapper_cases():
     contrib = torch.as_tensor(rng.standard_normal((12, 50)).astype(np.float32))
     cum = torch.as_tensor(np.sort(rng.integers(0, 51, 16)).astype(np.int32))
     cum[-1] = 50
+    tri = traster.prepare_legacy(ndc, depth, faces, 32, True)
     return [
         (lambda c, b: traster.rasterize_coefficients(c, b, 32),
          lambda c, b: traster.rasterize_coefficients_plain(c, b, 32),
          (cof, bbox)),
+        (lambda t: traster.rasterize_legacy(t, 32),
+         lambda t: traster.rasterize_legacy_plain(t, 32), (tri,)),
         (lambda q: tattn.attention_qkv(q, 1),
          lambda q: tattn.attention_qkv_plain(q, 1), (qkv,)),
         (topt.segment_sum, topt.segment_sum_plain, (contrib, cum)),
     ]
 
 
-@pytest.mark.parametrize("case", range(3), ids=["raster", "attention",
-                                                "segment_sum"])
+@pytest.mark.parametrize("case", range(4), ids=["raster", "raster_legacy",
+                                                "attention", "segment_sum"])
 def test_wrappers_take_the_plain_version_only_on_cpu(case, monkeypatch):
     wrapper, plain, args = _wrapper_cases()[case]
 

@@ -1,6 +1,7 @@
-"""PyTorch port, K1's plain version (ops/raster.py) against the JAX
-rasterizers: the Pallas binned kernel in interpret mode (the TPU main
-path) and the XLA tiled rasterizer (the JAX package's CPU path).
+"""PyTorch port, the plain versions of K1 and K4 (ops/raster.py) against
+the JAX rasterizers: the Pallas binned kernel and the legacy full-stream
+kernel in interpret mode, and the XLA tiled rasterizer (the JAX package's
+CPU path); and the PD_USE_PALLAS_RASTER switch between the two routes.
 
 Tolerances: face ids exact except at z ties (pixels where the two
 candidates' depths agree within 1e-5); zbuf and barycentrics within 1e-5
@@ -11,8 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from pointdreamer_tpu.kernels.raster_pallas import \
-    rasterize_views_binned_pallas
+from pointdreamer_tpu.kernels.raster_pallas import (
+    rasterize_pallas, rasterize_views_binned_pallas)
 from pointdreamer_tpu.ops import raster as jr
 from pointdreamer_tpu_torch.ops import raster as tr
 
@@ -103,3 +104,72 @@ def test_interpolate_and_face_normals():
                         ).numpy(),
         np.asarray(jr.face_normals(jnp.asarray(verts), jnp.asarray(faces))),
         atol=1e-6)
+
+
+@pytest.mark.parametrize("cull", [False, True])
+def test_raster_legacy_matches_pallas_interpret(cull):
+    # K4's plain version against rasterize_pallas(interpret=True) on the
+    # JAX package's own K4 scene (80 random triangles, res 128): face ids
+    # exact, barycentrics within 1e-6, zbuf within 1e-6 relative (z is
+    # 0.45..2.05 here).  XLA's CPU backend contracts a*b - c*d into
+    # fma(a, b, -(c*d)) (every barycentric of the interpret run equals
+    # that form), the port keeps the kernel source's separate roundings,
+    # so the two differ by a few ulp (measured 7.5e-7 bary, 1.2e-6 z).
+    rng = np.random.default_rng(7)
+    n = 80
+    c = rng.uniform(-0.9, 0.9, (n, 1, 2))
+    offs = rng.uniform(-0.2, 0.2, (n, 3, 2))
+    tri = (c + offs).reshape(-1, 2).astype(np.float32)
+    depth = rng.uniform(0.5, 2.0, (n, 1)).repeat(3, 1).reshape(-1)
+    depth = (depth + rng.uniform(-0.05, 0.05, depth.shape)).astype(
+        np.float32)
+    faces = np.arange(n * 3).reshape(-1, 3).astype(np.int32)
+    j = rasterize_pallas(jnp.asarray(tri), jnp.asarray(depth),
+                         jnp.asarray(faces), 128, cull, interpret=True)
+    t = tr.rasterize_legacy(tr.prepare_legacy(
+        torch.as_tensor(tri)[None], torch.as_tensor(depth)[None],
+        torch.as_tensor(faces), 128, cull), 128)
+    jf, tf = np.asarray(j.face_id), t.face_id[0].numpy()
+    np.testing.assert_array_equal(tf, jf)
+    hit = jf >= 0
+    assert hit.sum() > 1000
+    np.testing.assert_allclose(t.zbuf[0].numpy()[hit],
+                               np.asarray(j.zbuf)[hit], rtol=1e-6, atol=0)
+    np.testing.assert_allclose(t.bary[0].numpy(), np.asarray(j.bary),
+                               atol=1e-6, rtol=0)
+    assert np.isinf(t.zbuf[0].numpy()[~hit]).all()
+
+
+def test_rasterize_views_switch(monkeypatch):
+    # PD_USE_PALLAS_RASTER=1, read at call time, sends res % 128 == 0 to
+    # K4 and everything else to K1, as the JAX package's rasterize_views
+    # does; the atlas bake always takes K1
+    from pointdreamer_tpu_torch.pipeline import unwrap as tunwrap
+
+    calls = []
+    for name in ("rasterize_legacy", "rasterize_coefficients"):
+        def spy(*a, _f=getattr(tr, name), _n=name):
+            calls.append(_n)
+            return _f(*a)
+        monkeypatch.setattr(tr, name, spy)
+    ndc, depth, faces = _scene(2)
+    args = (torch.as_tensor(ndc), torch.as_tensor(depth),
+            torch.as_tensor(faces))
+    monkeypatch.setenv("PD_USE_PALLAS_RASTER", "1")
+    k4 = tr.rasterize_views(*args, 128, True)
+    tr.rasterize_views(*args, 64)
+    assert calls == ["rasterize_legacy", "rasterize_coefficients"]
+    k1 = tr.rasterize_binned(*args, 128, True)
+    # the two routes agree on this scene but for z-tie pixels (as K1 does
+    # against the Pallas kernels above)
+    _compare(k1, k4)
+    v = np.random.default_rng(0).random((30, 3)).astype(np.float32)
+    f = np.arange(30).reshape(10, 3)
+    uv = v[:, :2]
+    del calls[:]
+    tunwrap.bake_atlas(v, f, uv, f, 128, device="cpu")
+    assert calls == ["rasterize_coefficients"]
+    monkeypatch.delenv("PD_USE_PALLAS_RASTER")
+    del calls[:]
+    tr.rasterize_views(*args, 128)
+    assert calls == ["rasterize_coefficients"]
