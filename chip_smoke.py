@@ -17,11 +17,17 @@ Phases (each prints its own lines; any failure exits non-zero):
                 (8 views x 512^2, and the 1024^2 atlas bake), K4 legacy
                 raster (8 x 512^2 with and without back-face culling, and
                 the optimizer's 8 x 256^2), K2 attention (bf16, T/heads =
-                1024/8, 256/16, 64/16, batch 8), K3 segment sum (R = 1024
-                with the optimizer's real tables).  CUDA-event medians of
-                the kernel, the plain version and (where one exists) a
-                single PyTorch library call of the same function, beside
-                the bound the card's peak rates give.
+                1024/8, 256/16, 64/16, batch 8; then the training shapes:
+                fp32 hd 16 at T = 64, ragged T, and its gradient, kernel
+                forward + reference backward, against autograd through
+                the plain version), K3 segment sum (R = 1024 with the
+                optimizer's real tables), K5 GroupNorm at the UNet's
+                shapes (bf16, B = 8), K6 Winograd 3x3 at
+                [8,256,256,256] -> 256 and [8,16,16,1024] -> 1024.
+                CUDA-event medians of the kernel, the plain version and
+                (where one exists) a single PyTorch library call of the
+                same function, beside the bound the card's peak rates
+                give.
   4. e2e      : Pipeline.create(configs/default.yaml, device="cuda") with a
                 seeded random 552.8M-parameter bf16 UNet; one warm-up and
                 one timed recon_one_textured_mesh (fresh output dirs, so
@@ -42,12 +48,25 @@ Phases (each prints its own lines; any failure exits non-zero):
                 port's own CPU reconstruction of the same cloud; the
                 outputs pass phase 4's checks.  Two more reconstructions on
                 the card report the run-to-run difference.
+  6. training : the DDPM trainer (models/diffusion/train.py).  (a) The
+                training CLI's fp32 UNet (32 channels, res 32, batch 64):
+                one loss + backward on the card and on the CPU from the
+                same weights and draws; the losses agree and every
+                parameter's gradient is present, finite and near the
+                CPU's (the gate a cut autograd graph fails).  (b)
+                fit_ddpm on the card, 2 epochs x 100 steps: epoch 2's mean
+                loss below epoch 1's, K2 launched 4 times per step.  (c)
+                The 552.8M UNet with fp32 parameters and bf16 compute at
+                256^2, batch 4: 3 steps with finite losses and gradients,
+                every parameter moved, K2 launched 16 times per step; ms
+                per step and peak memory.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -219,6 +238,333 @@ def bound(bytes_moved: float, ops: float, ops_rate: float):
     tb = bytes_moved / HBM_BYTES_PER_S * 1e3
     to = ops / ops_rate * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def bf16_ulp(v):
+    """One bf16 ulp at |v|, taken at no less than 2^-8: below that a
+    normalized output is the difference of O(1) fp32 terms, whose rounding
+    exceeds the bf16 ulp."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp(min=2.0 ** -8)))
+                      - 7)
+
+
+def check_groupnorm(dev, gen) -> dict:
+    """K5 against its plain version at the 552.8M UNet's GroupNorm shapes
+    (bf16 in and out, B = 8): within one bf16 ulp of the output.  Returns
+    the kernel table row (times and bounds summed over the shapes)."""
+    import torch
+    import torch.nn.functional as F_
+
+    from pointdreamer_tpu_torch.kernels import FP32_OPS_PER_S
+    from pointdreamer_tpu_torch.kernels.groupnorm import (
+        fused_groupnorm, fused_groupnorm_plain)
+
+    row = dict(name="groupnorm", route="cuda",
+               source="pointdreamer_tpu_torch/csrc/groupnorm.cu",
+               replaces="pointdreamer_tpu/kernels/groupnorm_pallas.py:113",
+               max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               library_ms=0.0)
+    by = ops = 0.0
+    for (B, S, C), with_ss, silu, what in (
+            ((8, 65536, 256), True, True, "256^2 ResBlock out_norm"),
+            ((8, 65536, 512), False, True, "256^2 first output block"),
+            ((8, 256, 1024), False, False, "16^2 attention norm"),
+            ((8, 64, 2048), False, False, "8^2 output-block concat")):
+        x = (torch.randn((B, S, C), generator=gen, device=dev) * 2.0
+             + 0.3).to(torch.bfloat16)
+        g = torch.randn(C, generator=gen, device=dev) * 0.5 + 1.0
+        b = torch.randn(C, generator=gen, device=dev) * 0.2
+        ss = (torch.randn((B, 2 * C), generator=gen, device=dev) * 0.3
+              if with_ss else None)
+        got = fused_groupnorm(x, g, b, ss, silu=silu)
+        want = fused_groupnorm_plain(x, g, b, ss, silu=silu).float()
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs()
+        ulps = float((err / bf16_ulp(want)).max())
+        if not ulps <= 1.0:
+            fail(f"K5 {(B, S, C)}: {ulps} bf16 ulps from its plain version")
+        ms = cuda_ms(lambda: fused_groupnorm(x, g, b, ss, silu=silu))
+        pms = cuda_ms(lambda: fused_groupnorm_plain(x, g, b, ss, silu=silu),
+                      reps=3, warmup=1)
+        xc = x.transpose(1, 2).contiguous()
+        gb, bb = g.bfloat16(), b.bfloat16()
+        lms = cuda_ms(lambda: F_.group_norm(xc, 32, gb, bb, 1e-5))
+        # one read of x and one write of y (bf16), gamma/beta/ss once;
+        # per element: sum, square, sum of squares, scale, bias, and 3
+        # for the scale-shift, 4 for the SiLU
+        n = B * S * C
+        b_x = n * 4 + C * 8 + (B * 2 * C * 2 if with_ss else 0)
+        o_x = n * (5 + 3 * with_ss + 4 * silu)
+        b_ms, b_by = bound(b_x, o_x, FP32_OPS_PER_S)
+        print(f"[K5 groupnorm] {what} {[B, S, C]} ss={with_ss} silu={silu} "
+              f"max_abs_err={float(err.max()):.3g} ({ulps:.3g} bf16 ulp) "
+              f"ms={ms:.4f} plain_ms={pms:.4f} group_norm_ms={lms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by})")
+        row["max_abs_err"] = max(row["max_abs_err"], float(err.max()))
+        row["ms"] += ms
+        row["plain_ms"] += pms
+        row["library_ms"] += lms
+        by += b_x
+        ops += o_x
+        del x, got, want, err, xc
+    row["bound_ms"], row["bound_by"] = bound(by, ops, FP32_OPS_PER_S)
+    print(f"[K5 groupnorm] 4 shapes: ms={row['ms']:.4f} "
+          f"plain_ms={row['plain_ms']:.4f} "
+          f"group_norm_ms={row['library_ms']:.4f} "
+          f"bound_ms={row['bound_ms']:.4f}")
+    return row
+
+
+def check_winograd(dev, gen) -> dict:
+    """K6 against its plain version (relative max |d| <= 1e-2 of max |y|)
+    and against F.conv2d in bf16, channels-last (<= 2e-2), at the UNet's
+    dominant 3x3 conv and at the 16^2 x 1024 one.  Returns the table row
+    (summed over the two shapes)."""
+    import torch
+    import torch.nn.functional as F_
+
+    from pointdreamer_tpu_torch.kernels import BF16_OPS_PER_S
+    from pointdreamer_tpu_torch.kernels.winograd import (
+        winograd_conv3x3, winograd_conv3x3_plain)
+
+    row = dict(name="winograd_conv3x3", route="cuda",
+               source="pointdreamer_tpu_torch/csrc/winograd.cu",
+               replaces="pointdreamer_tpu/kernels/winograd_pallas.py:145",
+               max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               library_ms=0.0)
+    by = ops = 0.0
+    for B, H, W, Cin, Cout in ((8, 256, 256, 256, 256),
+                               (8, 16, 16, 1024, 1024)):
+        x = torch.randn((B, H, W, Cin), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        w = torch.randn((3, 3, Cin, Cout), generator=gen,
+                        device=dev) / math.sqrt(9 * Cin)
+        got = winograd_conv3x3(x, w)
+        want = winograd_conv3x3_plain(x, w)
+        wl = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        xl = x.permute(0, 3, 1, 2)              # NHWC memory: channels-last
+        lib = F_.conv2d(xl, wl, padding=1).permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        scale = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        err_lib = float((got.float() - lib.float()).abs().max())
+        rel, rel_lib = err / scale, err_lib / float(lib.float().abs().max())
+        if not (rel <= 1e-2 and rel_lib <= 2e-2):
+            fail(f"K6 {[B, H, W, Cin, Cout]}: relative error {rel} against "
+                 f"the plain version, {rel_lib} against F.conv2d")
+        ms = cuda_ms(lambda: winograd_conv3x3(x, w))
+        pms = cuda_ms(lambda: winograd_conv3x3_plain(x, w), reps=3,
+                      warmup=1)
+        lms = cuda_ms(lambda: F_.conv2d(xl, wl, padding=1))
+        # the Winograd's own operations (16 multiplies per 4 outputs), as
+        # the Pallas cost estimate counts them, at the bf16 peak; bytes:
+        # x, U and y once
+        o_x = 2.0 * B * H * W * Cin * Cout * 4
+        b_x = B * H * W * (Cin + Cout) * 2 + 16 * Cin * Cout * 2
+        b_ms, b_by = bound(b_x, o_x, BF16_OPS_PER_S)
+        direct_ms = 2.0 * B * H * W * Cin * Cout * 9 / BF16_OPS_PER_S * 1e3
+        print(f"[K6 winograd] {[B, H, W, Cin]} -> {Cout}: max_abs_err="
+              f"{err:.3g} (rel {rel:.3g}; vs conv2d rel {rel_lib:.3g}) "
+              f"ms={ms:.4f} plain_ms={pms:.4f} conv2d_ms={lms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}; direct conv {direct_ms:.4f})")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["ms"] += ms
+        row["plain_ms"] += pms
+        row["library_ms"] += lms
+        by += b_x
+        ops += o_x
+        del x, got, want, lib
+    row["bound_ms"], row["bound_by"] = bound(by, ops, BF16_OPS_PER_S)
+    print(f"[K6 winograd] 2 shapes: ms={row['ms']:.4f} "
+          f"plain_ms={row['plain_ms']:.4f} conv2d_ms={row['library_ms']:.4f} "
+          f"bound_ms={row['bound_ms']:.4f}")
+    return row
+
+
+def check_attention_training(dev, gen) -> None:
+    """K2 at the shapes the JAX kernel takes beyond the inference path: the
+    training CLI's fp32 hd 16 at T = 64 (4 heads, batch 64), fp32 hd 64
+    and bf16 hd 32 at ragged T; then the gradient (kernel forward,
+    reference backward) against autograd through the plain version, at
+    the CLI's shape and the 552.8M UNet's T = 1024.  fp32 within 1e-5
+    (forward) and 1e-4 of max |grad|; bf16 within 2e-2."""
+    import torch
+
+    from pointdreamer_tpu_torch.models.diffusion.attention import (
+        attention_qkv, attention_qkv_plain)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    for B, T, heads, hd, dt in ((64, 64, 4, 16, f32), (8, 72, 2, 64, f32),
+                                (8, 136, 4, 32, bf16)):
+        qkv = torch.randn((B, T, 3 * heads * hd), generator=gen,
+                          device=dev).to(dt)
+        out = attention_qkv(qkv, heads)
+        ref = attention_qkv_plain(qkv, heads)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = 1e-5 if dt == f32 else 2e-2
+        if not err <= tol:
+            fail(f"K2 {dt} hd={hd} T={T}: max abs err {err}")
+        ms = cuda_ms(lambda: attention_qkv(qkv, heads))
+        print(f"[K2 attention_qkv] {str(dt)[6:]} B={B} T={T} heads={heads} "
+              f"hd={hd} max_abs_err={err:.3g} ms={ms:.4f}")
+    for B, T, heads, hd, dt in ((64, 64, 4, 16, f32), (4, 1024, 8, 64, bf16)):
+        qkv = torch.randn((B, T, 3 * heads * hd), generator=gen,
+                          device=dev).to(dt)
+        g = torch.randn((B, T, heads * hd), generator=gen, device=dev).to(dt)
+        x = qkv.clone().requires_grad_(True)
+        attention_qkv(x, heads).backward(g)
+        y = qkv.clone().requires_grad_(True)
+        attention_qkv_plain(y, heads).backward(g)
+        torch.cuda.synchronize()
+        if x.grad is None:
+            fail(f"K2 {dt} hd={hd} T={T}: no gradient reached qkv")
+        rel = float((x.grad.float() - y.grad.float()).abs().max()
+                    / y.grad.float().abs().max())
+        tol = 1e-4 if dt == f32 else 2e-2
+        if not rel <= tol:
+            fail(f"K2 gradient {dt} hd={hd} T={T}: relative error {rel}")
+        print(f"[K2 attention_qkv] gradient {str(dt)[6:]} B={B} T={T} "
+              f"heads={heads} hd={hd}: kernel forward + reference backward "
+              f"vs autograd through the plain version, max |d| / max |g| "
+              f"{rel:.3g}")
+
+
+def train_cli_model(dev) -> None:
+    """Phase 6 (a) and (b) on the training CLI's fp32 UNet."""
+    import torch
+
+    from pointdreamer_tpu_torch import kernels
+    from pointdreamer_tpu_torch.cli.train_ddnm_synthetic import build_model
+    from pointdreamer_tpu_torch.models.diffusion import train as dtrain
+    from pointdreamer_tpu_torch.models.diffusion.synthetic_images import \
+        sample_images
+
+    # (a) one loss + backward from the same weights and draws on the CPU
+    # and on the card (TF32 off).  The seeded init zeroes the layers the
+    # reference zero-initializes, which would leave most gradients 0: a
+    # seeded perturbation of every weight makes each gradient informative
+    cpu = build_model(32, "cpu", seed=0)
+    g0 = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(torch.randn(p.shape, generator=g0) * 0.02)
+    card = build_model(32, dev, seed=0)
+    card.load_state_dict(cpu.state_dict())
+    gd = torch.Generator().manual_seed(2)
+    x0 = sample_images(gd, 64, 32) * 2.0 - 1.0
+    t = torch.randint(0, 1000, (64,), generator=gd)
+    eps = torch.randn(x0.shape, generator=gd)
+    losses, grads = {}, {}
+    for name, m, d in (("cpu", cpu, torch.device("cpu")), ("card", card,
+                                                            dev)):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        loss = dtrain.ddpm_loss(m, x0.to(d), t.to(d), eps.to(d),
+                                dtrain.alphas_cumprod(device=d))
+        loss.backward()
+        losses[name] = loss.item()
+        print(f"[train] CLI model, batch 64 at 32^2, one loss + backward on "
+              f"the {name}: loss {losses[name]:.7f} in "
+              f"{time.perf_counter() - t0:.3f} s (first call)")
+        grads[name] = {n: p.grad for n, p in m.named_parameters()}
+    if kernels.LAUNCHES["attention_qkv"] != 4:
+        fail(f"K2 launched {kernels.LAUNCHES['attention_qkv']} times in one "
+             f"step of the CLI model, not 4")
+    if not abs(losses["card"] - losses["cpu"]) <= 1e-5 * losses["cpu"]:
+        fail(f"losses differ: card {losses['card']} cpu {losses['cpu']}")
+    top = max(float(g.abs().max()) for g in grads["cpu"].values())
+    worst, worst_name = 0.0, ""
+    for n, gc in grads["cpu"].items():
+        gk = grads["card"][n]
+        if gk is None or not bool(torch.isfinite(gk).all()):
+            fail(f"card gradient of {n} is {'None' if gk is None else 'not finite'}")
+        err = float((gk.cpu() - gc).abs().max())
+        lim = 1e-3 * float(gc.abs().max()) + 1e-5 * top
+        if not err <= lim:
+            fail(f"card gradient of {n} differs from the CPU's by {err} "
+                 f"(bound {lim})")
+        rel = err / max(float(gc.abs().max()), 1e-30)
+        if float(gc.abs().max()) > 1e-3 * top and rel > worst:
+            worst, worst_name = rel, n
+    print(f"[train] card vs CPU: loss rel diff "
+          f"{abs(losses['card'] - losses['cpu']) / losses['cpu']:.3g}; "
+          f"{len(grads['cpu'])} gradients all present and finite; worst "
+          f"max |d| / max |g| {worst:.3g} ({worst_name}); K2 launches 4")
+    del cpu, card, grads
+
+    # (b) fit_ddpm on the card, 2 epochs x 100 steps
+    model = build_model(32, dev, seed=0)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hist = dtrain.fit_ddpm(model, epochs=2, steps_per_epoch=100,
+                              batch=64, res=32)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_k2 = kernels.LAUNCHES["attention_qkv"]
+    print(f"[train] fit_ddpm 2 x 100 steps, batch 64 at 32^2: losses "
+          f"{[round(h['loss'], 5) for h in hist]}, {dt:.3f} s, "
+          f"{200 / dt:.2f} steps/s (first steps included); K2 launches "
+          f"{n_k2}")
+    if not hist[1]["loss"] < hist[0]["loss"]:
+        fail(f"epoch 2's loss {hist[1]['loss']} is not below epoch 1's "
+             f"{hist[0]['loss']}")
+    if n_k2 != 4 * 200:
+        fail(f"K2 launched {n_k2} times in 200 steps, not 4 per step")
+
+
+def train_full_width(dev) -> None:
+    """Phase 6 (c): the 552.8M UNet, fp32 parameters, bf16 compute, 256^2,
+    batch 4, three steps."""
+    import torch
+
+    from pointdreamer_tpu_torch import kernels
+    from pointdreamer_tpu_torch.models.diffusion import train as dtrain
+    from pointdreamer_tpu_torch.models.diffusion.unet import (
+        imagenet256_unet, init_random_)
+
+    with torch.device("meta"):
+        model = imagenet256_unet()
+    model = init_random_(model.to_empty(device=dev), seed=0)
+    model.set_compute_dtype(torch.bfloat16, keep_fp32_params=True).train()
+    params = list(model.parameters())
+    if sum(p.numel() for p in params) != 552_814_086 or \
+            any(p.dtype != torch.float32 for p in params):
+        fail("the full-width UNet is not 552,814,086 fp32 parameters")
+    before = [p.detach().clone() for p in params]
+    opt = dtrain.AdamCosine(params, 2e-4, 3, alpha=0.1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    step_ms, step_loss = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_loss.append(dtrain.train_epoch(model, opt, gen, 1, 4, 256))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    n_k2 = kernels.LAUNCHES["attention_qkv"]
+    print(f"[train] 552.8M UNet, fp32 parameters, bf16 compute, batch 4 at "
+          f"256^2: losses {[round(v, 5) for v in step_loss]}, ms per step "
+          f"{[round(v, 1) for v in step_ms]}, peak memory "
+          f"{peak / 2**30:.2f} GiB, K2 launches {n_k2}")
+    if not all(math.isfinite(v) for v in step_loss):
+        fail(f"full-width losses {step_loss}")
+    if n_k2 != 16 * 3:
+        fail(f"K2 launched {n_k2} times in 3 steps, not 16 per step")
+    for (name, p), b in zip(model.named_parameters(), before):
+        if p.grad is None or not bool(torch.isfinite(p.grad).all()):
+            fail(f"full-width gradient of {name} missing or not finite")
+        if bool((p.detach() == b).all()):
+            fail(f"full-width parameter {name} did not move")
+    print(f"[train] all {len(params)} parameter tensors have finite "
+          f"gradients and moved")
 
 
 def main() -> int:
@@ -448,6 +794,13 @@ def main() -> int:
                       bound_ms=k4_bound, bound_by=k4_by, library_ms=None))
     del proj, uv_map, fg, contrib, tri_k4, tri_o
 
+    # K2 beyond the inference shapes, K5 and K6 (no caller on the main
+    # paths: their launches there are 0)
+    check_attention_training(dev, gen)
+    table.append(check_groupnorm(dev, gen))
+    table.append(check_winograd(dev, gen))
+    torch.cuda.empty_cache()
+
     # ---- 4. end to end ----------------------------------------------
     os.environ.pop("PD_USE_PALLAS_RASTER", None)
     cfg.output_path = os.path.join(work, "out_warmup")
@@ -481,9 +834,9 @@ def main() -> int:
         fail(f"K3 launched {launches['segment_sum']} times, not 100")
     if launches["raster_binned"] < 3:
         fail(f"K1 launched {launches['raster_binned']} times, not >= 3")
-    for t, key in zip(table, ("raster_binned", "attention_qkv",
-                              "segment_sum")):
-        t["launches"] = launches[key]
+    for t in table:
+        if t["name"] != "raster_legacy":
+            t["launches"] = launches[t["name"]]
     check_outputs(obj, cfg, "e2e")
 
     # ---- 5. geometry from the cloud, K4 on ---------------------------
@@ -501,10 +854,13 @@ def main() -> int:
     print(f"[geometry] timed run {total:.3f} s stages {json.dumps(stages)}")
     print(f"[geometry] launches {json.dumps(launches)}")
     want_launches = {"raster_legacy": 2, "raster_binned": 1,
-                     "attention_qkv": 1600, "segment_sum": 100}
+                     "attention_qkv": 1600, "segment_sum": 100,
+                     "groupnorm": 0, "winograd_conv3x3": 0}
     if launches != want_launches:
         fail(f"launches {launches}, not {want_launches}")
-    table[-1]["launches"] = launches["raster_legacy"]
+    for t in table:
+        if t["name"] == "raster_legacy":
+            t["launches"] = launches["raster_legacy"]
     check_outputs(obj, cfg, "geometry")
 
     # the reconstructed mesh (normalized frame), against the cube
@@ -561,6 +917,12 @@ def main() -> int:
           f"max vertex diff {dv_2}")
     if not chamfer < 1e-3:
         fail(f"card mesh {chamfer} from the CPU mesh (bound 1e-3)")
+    del pipe, unet
+    torch.cuda.empty_cache()
+
+    # ---- 6. training -------------------------------------------------
+    train_cli_model(dev)
+    train_full_width(dev)
 
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

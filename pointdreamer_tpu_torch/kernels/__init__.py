@@ -7,9 +7,10 @@ in the git-ignored build directory `<repo>/build/pointdreamer_tpu_torch/`,
 and loaded with ctypes.  Nothing here runs at import time.
 
 Each wrapper (ops/raster.py for K1 and K4, models/diffusion/attention.py,
-pipeline/optimize.py) adds one to its entry of `LAUNCHES` where it
-launches its kernel, and nowhere else.  `build_host` compiles the host
-C++ libraries (csrc/host/*.cpp) with g++ into the same directory.
+pipeline/optimize.py, kernels/groupnorm.py, kernels/winograd.py) adds one
+to its entry of `LAUNCHES` where it launches its kernel, and nowhere
+else.  `build_host` compiles the host C++ libraries (csrc/host/*.cpp) with
+g++ into the same directory.
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
                          "pointdreamer_tpu_torch")
-SOURCES = ("raster.cu", "raster_legacy.cu", "attention.cu", "segsum.cu")
+SOURCES = ("raster.cu", "raster_legacy.cu", "attention.cu", "segsum.cu",
+           "groupnorm.cu", "winograd.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -39,7 +41,8 @@ BF16_OPS_PER_S = 989e12        # tensor-core bf16
 FP32_OPS_PER_S = 67e12         # fp32 outside the tensor cores
 
 LAUNCHES: Dict[str, int] = {"raster_binned": 0, "raster_legacy": 0,
-                            "attention_qkv": 0, "segment_sum": 0}
+                            "attention_qkv": 0, "segment_sum": 0,
+                            "groupnorm": 0, "winograd_conv3x3": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -51,8 +54,11 @@ _SIGNATURES = {
     "pd_bin_fill": [_P, _I, _I, _I, _P, _P, _P, _P],
     "pd_raster_tiles": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "pd_raster_legacy": [_P, _I, _I, _I, _P, _P, _P, _P],
-    "pd_attention_qkv": [_P, _P, _I, _I, _I, ctypes.c_float, _P],
+    "pd_attention_qkv": [_P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     "pd_segment_sum": [_P, _P, ctypes.c_int64, _I, _P, _P],
+    "pd_groupnorm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                     ctypes.c_float, _P],
+    "pd_winograd_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

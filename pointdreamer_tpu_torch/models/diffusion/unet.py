@@ -10,6 +10,10 @@ it is: `time_embed.{0,2}`, `input_blocks.{i}.{j}...`, `middle_block.{j}`,
 
 Numerics follow the JAX package: the torso computes in `dtype` (bf16 on
 the card), GroupNorm (32 groups) in fp32, the final norm + conv in fp32.
+Each conv and linear casts its input, weight and bias to the compute dtype
+at use, as flax does, so the parameters may be stored in it (inference:
+`set_compute_dtype(bf16)`) or kept fp32 for training
+(`set_compute_dtype(bf16, keep_fp32_params=True)`).
 The public layout is the JAX package's: x [N, H, W, 3] -> eps [N, H, W, 6].
 Attention runs on K2 (`attention.attention_qkv`).
 """
@@ -80,8 +84,15 @@ def _group_norm(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
                         norm.bias.float(), norm.eps)
 
 
-def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    return conv(x.to(conv.weight.dtype))
+def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
+    """The conv in `dtype`: input, weight and bias cast at use (no-ops when
+    the weights are stored in `dtype`)."""
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
+                    conv.stride, conv.padding)
+
+
+def _linear(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
 
 
 def _nearest_up2(x):
@@ -119,9 +130,8 @@ class ResBlock(nn.Module):
             h, x = _nearest_up2(h), _nearest_up2(x)
         elif self.down:
             h, x = _avg_down2(h), _avg_down2(x)
-        h = _conv(self.in_layers[2], h)
-        lin = self.emb_layers[1]
-        emb_out = lin(F.silu(emb).to(lin.weight.dtype)).to(dtype)
+        h = _conv(self.in_layers[2], h, dtype)
+        emb_out = _linear(self.emb_layers[1], F.silu(emb), dtype)
         emb_out = emb_out[:, :, None, None]
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=1)
@@ -129,9 +139,9 @@ class ResBlock(nn.Module):
                 + shift
         else:
             h = _group_norm(self.out_layers[0], h + emb_out).to(dtype)
-        h = _conv(self.out_layers[3], F.silu(h))
+        h = _conv(self.out_layers[3], F.silu(h), dtype)
         if not isinstance(self.skip_connection, nn.Identity):
-            x = _conv(self.skip_connection, x)
+            x = _conv(self.skip_connection, x, dtype)
         return x.to(dtype) + h
 
 
@@ -149,11 +159,11 @@ class AttentionBlock(nn.Module):
         b, c, hh, ww = x.shape
         y = _group_norm(self.norm, x.reshape(b, c, hh * ww)).to(dtype)
         y = y.transpose(1, 2)                                  # [b,t,c]
-        qkv = F.linear(y.to(self.qkv.weight.dtype), self.qkv.weight[:, :, 0],
-                       self.qkv.bias)
+        qkv = F.linear(y, self.qkv.weight[:, :, 0].to(dtype),
+                       self.qkv.bias.to(dtype))
         a = attention_qkv(qkv.contiguous(), self.num_heads)   # [b,t,c]
-        out = F.linear(a.to(self.proj_out.weight.dtype),
-                       self.proj_out.weight[:, :, 0], self.proj_out.bias)
+        out = F.linear(a, self.proj_out.weight[:, :, 0].to(dtype),
+                       self.proj_out.bias.to(dtype))
         return x + out.transpose(1, 2).reshape(b, c, hh, ww).to(x.dtype)
 
 
@@ -163,7 +173,7 @@ class Downsample(nn.Module):
         self.op = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
 
     def forward(self, x, dtype):
-        return _conv(self.op, x).to(dtype)
+        return _conv(self.op, x, dtype)
 
 
 class Upsample(nn.Module):
@@ -172,7 +182,7 @@ class Upsample(nn.Module):
         self.conv = nn.Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x, dtype):
-        return _conv(self.conv, _nearest_up2(x)).to(dtype)
+        return _conv(self.conv, _nearest_up2(x), dtype)
 
 
 class UNetModel(nn.Module):
@@ -188,6 +198,11 @@ class UNetModel(nn.Module):
         super().__init__()
         self.model_channels = model_channels
         self.channel_mult = tuple(channel_mult)
+        # the widths `convert.params_from_jax` needs to map a flax tree
+        self.plan_kwargs = dict(model_channels=model_channels,
+                                num_res_blocks=num_res_blocks,
+                                channel_mult=tuple(channel_mult),
+                                attention_ds=tuple(attention_ds))
         self.dtype = torch.float32
         emb_ch = 4 * model_channels
         self.time_embed = nn.Sequential(nn.Linear(model_channels, emb_ch),
@@ -237,10 +252,16 @@ class UNetModel(nn.Module):
         self.out = nn.Sequential(nn.GroupNorm(32, ch), nn.SiLU(),
                                  nn.Conv2d(ch, out_channels, 3, padding=1))
 
-    def set_compute_dtype(self, dtype: torch.dtype) -> "UNetModel":
-        """Store the torso's conv/linear weights in `dtype` and compute in
-        it; norms and the final conv stay fp32."""
+    def set_compute_dtype(self, dtype: torch.dtype,
+                          keep_fp32_params: bool = False) -> "UNetModel":
+        """Compute the torso in `dtype`; norms and the final conv stay fp32.
+        The torso's conv/linear weights are stored in `dtype` (inference),
+        or, with `keep_fp32_params`, kept fp32 and cast at each use, as
+        flax keeps them (training: Adam's lr-sized updates vanish in bf16
+        master weights)."""
         self.dtype = dtype
+        if keep_fp32_params:
+            return self
         for name, mod in self.named_modules():
             if isinstance(mod, (nn.Conv2d, nn.Conv1d, nn.Linear)) \
                     and name != "out.2":
@@ -252,7 +273,7 @@ class UNetModel(nn.Module):
         if isinstance(mod, ResBlock):
             return mod(h, emb, dtype)
         if isinstance(mod, nn.Conv2d):
-            return _conv(mod, h).to(dtype)
+            return _conv(mod, h, dtype)
         return mod(h, dtype)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor
@@ -260,9 +281,8 @@ class UNetModel(nn.Module):
         """x [N, H, W, 3] float, timesteps [N] -> [N, H, W, out] fp32."""
         dt = self.dtype
         emb = timestep_embedding(timesteps, self.model_channels)
-        lin0, lin2 = self.time_embed[0], self.time_embed[2]
-        emb = lin0(emb.to(lin0.weight.dtype)).to(dt)
-        emb = lin2(F.silu(emb).to(lin2.weight.dtype)).to(dt)
+        emb = _linear(self.time_embed[0], emb, dt)
+        emb = _linear(self.time_embed[2], F.silu(emb), dt)
         h = x.permute(0, 3, 1, 2).to(dt)
         hs = []
         for mods in self.input_blocks:
@@ -276,8 +296,7 @@ class UNetModel(nn.Module):
             for mod in mods:
                 h = self._run(mod, h, emb, dt)
         h = F.silu(_group_norm(self.out[0], h))
-        conv = self.out[2]
-        h = conv(h.to(conv.weight.dtype)).float()
+        h = _conv(self.out[2], h, torch.float32)
         return h.permute(0, 2, 3, 1)
 
 

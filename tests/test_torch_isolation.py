@@ -11,6 +11,8 @@ import torch
 
 from pointdreamer_tpu_torch import kernels
 from pointdreamer_tpu_torch.config import load_config
+from pointdreamer_tpu_torch.kernels import groupnorm as tgn
+from pointdreamer_tpu_torch.kernels import winograd as twino
 from pointdreamer_tpu_torch.models.diffusion import attention as tattn
 from pointdreamer_tpu_torch.ops import raster as traster
 from pointdreamer_tpu_torch.pipeline import optimize as topt
@@ -34,7 +36,11 @@ def test_port_imports_nothing_forbidden():
     found = []
     scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
     for mod in ("ops/sdf.py", "ops/iso.py", "ops/mc_table.py", "ops/qem.py",
-                "ops/knn.py", "pipeline/geometry.py", "baselines/spr.py"):
+                "ops/knn.py", "pipeline/geometry.py", "baselines/spr.py",
+                "kernels/groupnorm.py", "kernels/winograd.py",
+                "models/diffusion/train.py",
+                "models/diffusion/synthetic_images.py",
+                "cli/train_ddnm_synthetic.py"):
         assert os.path.join("pointdreamer_tpu_torch", mod) in scanned
     for path in _port_sources():
         with open(path) as fh:
@@ -65,13 +71,15 @@ def test_create_without_a_device_needs_cuda():
 
 
 @pytest.mark.parametrize("call", ["camera_rig", "bake_atlas",
-                                  "reconstruct_mesh", "spr_baseline"])
+                                  "reconstruct_mesh", "spr_baseline",
+                                  "train_ddnm_synthetic"])
 def test_helpers_without_a_device_need_cuda(call):
     # the helpers an entry point calls default to device='cuda' too
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     from pointdreamer_tpu_torch.baselines.spr import recon_one_shape_SPR
     from pointdreamer_tpu_torch.camera import make_camera_rig
+    from pointdreamer_tpu_torch.cli import train_ddnm_synthetic
     from pointdreamer_tpu_torch.pipeline.geometry import reconstruct_mesh
     from pointdreamer_tpu_torch.pipeline.unwrap import bake_atlas
 
@@ -82,7 +90,9 @@ def test_helpers_without_a_device_need_cuda(call):
            "bake_atlas": lambda: bake_atlas(pts[:6], tri, pts[:6, :2], tri,
                                             32),
            "reconstruct_mesh": lambda: reconstruct_mesh(pts, "SPR", 16, 100),
-           "spr_baseline": lambda: recon_one_shape_SPR(pts, None, 100, 16)}
+           "spr_baseline": lambda: recon_one_shape_SPR(pts, None, 100, 16),
+           "train_ddnm_synthetic": lambda: train_ddnm_synthetic.main(
+               ["--epochs", "1", "--steps", "1"])}
     with pytest.raises((RuntimeError, AssertionError),
                        match="CUDA|Torch not compiled"):
         run[call]()
@@ -100,6 +110,13 @@ def _wrapper_cases():
     cum = torch.as_tensor(np.sort(rng.integers(0, 51, 16)).astype(np.int32))
     cum[-1] = 50
     tri = traster.prepare_legacy(ndc, depth, faces, 32, True)
+    x_gn = torch.as_tensor(rng.standard_normal((2, 24, 64)).astype(np.float32))
+    g_gn = torch.as_tensor(rng.standard_normal(64).astype(np.float32))
+    ss = torch.as_tensor(rng.standard_normal((2, 128)).astype(np.float32))
+    x_w = torch.as_tensor(rng.standard_normal((1, 4, 6, 16)).astype(
+        np.float32))
+    w_w = torch.as_tensor(rng.standard_normal((3, 3, 16, 32)).astype(
+        np.float32))
     return [
         (lambda c, b: traster.rasterize_coefficients(c, b, 32),
          lambda c, b: traster.rasterize_coefficients_plain(c, b, 32),
@@ -109,11 +126,16 @@ def _wrapper_cases():
         (lambda q: tattn.attention_qkv(q, 1),
          lambda q: tattn.attention_qkv_plain(q, 1), (qkv,)),
         (topt.segment_sum, topt.segment_sum_plain, (contrib, cum)),
+        (lambda x, g, s: tgn.fused_groupnorm(x, g, g, s),
+         lambda x, g, s: tgn.fused_groupnorm_plain(x, g, g, s),
+         (x_gn, g_gn, ss)),
+        (twino.winograd_conv3x3, twino.winograd_conv3x3_plain, (x_w, w_w)),
     ]
 
 
-@pytest.mark.parametrize("case", range(4), ids=["raster", "raster_legacy",
-                                                "attention", "segment_sum"])
+@pytest.mark.parametrize("case", range(6), ids=["raster", "raster_legacy",
+                                                "attention", "segment_sum",
+                                                "groupnorm", "winograd"])
 def test_wrappers_take_the_plain_version_only_on_cpu(case, monkeypatch):
     wrapper, plain, args = _wrapper_cases()[case]
 
