@@ -4,9 +4,13 @@
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. build    : compile the port's CUDA kernels (csrc/*.cu, one nvcc per
-                source in parallel) and the host hull and QEM libraries;
-                print the build seconds and the card's name and power
-                limit.
+                source in parallel, -Xptxas -v kept beside the library) and
+                the host hull and QEM libraries; count the tensor-core
+                instructions (HMMA/HGMMA, `cuobjdump -sass`) of K2's
+                twelve bf16 instantiations and of K6 and fail if any has
+                none;
+                print their registers, the build seconds and the card's
+                name and power limit.
   2. input    : a gridded unit cube (6 x 40 x 40 x 2 = 19,200 triangles)
                 as build/smoke/in/cube_untextured_mesh.obj and 30,000
                 surface samples with the analytic colour field (seed 0) as
@@ -22,12 +26,15 @@ Phases (each prints its own lines; any failure exits non-zero):
                 forward + reference backward, against autograd through
                 the plain version), K3 segment sum (R = 1024 with the
                 optimizer's real tables), K5 GroupNorm at the UNet's
-                shapes (bf16, B = 8), K6 Winograd 3x3 at
-                [8,256,256,256] -> 256 and [8,16,16,1024] -> 1024.
+                shapes (bf16, B = 8), K6 Winograd 3x3 at two ragged
+                shapes (checked only), [8,256,256,256] -> 256 and
+                [8,16,16,1024] -> 1024 (the function, weight transform
+                included, and the kernel alone on a precomputed U).
                 CUDA-event medians of the kernel, the plain version and
                 (where one exists) a single PyTorch library call of the
                 same function, beside the bound the card's peak rates
-                give.
+                give; for K2 also the device time of each launch and of
+                SDPA's from CUDA-graph replays (no host time).
   4. e2e      : Pipeline.create(configs/default.yaml, device="cuda") with a
                 seeded random 552.8M-parameter bf16 UNet; one warm-up and
                 one timed recon_one_textured_mesh (fresh output dirs, so
@@ -98,6 +105,68 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Median device milliseconds of one fn() call: n calls captured in a
+    CUDA graph and replayed, so the Python wrapper's host time drops out
+    (the launches a caller queues behind a busy card see this time)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    del graph
+    times.sort()
+    return times[len(times) // 2]
+
+
+def check_tensor_cores(path: str) -> None:
+    """K2's bf16 instantiations and K6 must hold tensor-core instructions
+    (HMMA / HGMMA in `cuobjdump -sass` of the built library); print each
+    count and the registers `-Xptxas -v` gave them."""
+    import re
+
+    from pointdreamer_tpu_torch import kernels
+
+    counts = kernels.sass_mma_counts(path)
+    want = {f"K2 bf16 hd {hd}{' masked' if m else ''}, {mt} m-tile(s) a "
+            f"warp": f"attn_mma_kernelILi{hd}ELb{m}ELi{mt}E"
+            for hd in (16, 32, 64) for m in (0, 1) for mt in (1, 2)}
+    want["K6"] = "wino_mma_kernel"
+    ptxas = open(path + ".ptxas.txt").read()
+    for what, key in want.items():
+        found = [c for name, c in counts.items() if key in name]
+        regs = re.search(re.escape(key) + r".*?Used (\d+) registers",
+                         ptxas, re.S)
+        spills = re.search(re.escape(key) + r".*?(\d+) bytes spill stores",
+                           ptxas, re.S)
+        print(f"[build] {what}: {found[0] if found else 0} tensor-core "
+              f"instructions (HMMA/HGMMA), "
+              f"{regs.group(1) if regs else '?'} registers, "
+              f"{spills.group(1) if spills else '?'} bytes spilled")
+        if len(found) != 1 or found[0] == 0:
+            fail(f"{what}: no tensor-core instructions in its SASS "
+                 f"({found})")
+    fp32 = [c for name, c in counts.items() if "attn_fma_kernel" in name]
+    print(f"[build] K2 fp32 (CUDA-core FMAs): {len(fp32)} instantiations, "
+          f"{sum(fp32)} tensor-core instructions")
 
 
 def check_raster(orast, cof, bbox, res: int, what: str) -> float:
@@ -319,21 +388,38 @@ def check_groupnorm(dev, gen) -> dict:
 
 def check_winograd(dev, gen) -> dict:
     """K6 against its plain version (relative max |d| <= 1e-2 of max |y|)
-    and against F.conv2d in bf16, channels-last (<= 2e-2), at the UNet's
-    dominant 3x3 conv and at the 16^2 x 1024 one.  Returns the table row
-    (summed over the two shapes)."""
+    at two ragged shapes, then also against F.conv2d in bf16,
+    channels-last (<= 2e-2), at the UNet's dominant 3x3 conv and at the
+    16^2 x 1024 one.  Returns the table row (summed over the two timed
+    shapes)."""
     import torch
     import torch.nn.functional as F_
 
     from pointdreamer_tpu_torch.kernels import BF16_OPS_PER_S
     from pointdreamer_tpu_torch.kernels.winograd import (
-        winograd_conv3x3, winograd_conv3x3_plain)
+        transform_weights, winograd_conv3x3, winograd_conv3x3_plain,
+        winograd_conv3x3_pretransformed)
 
     row = dict(name="winograd_conv3x3", route="cuda",
                source="pointdreamer_tpu_torch/csrc/winograd.cu",
                replaces="pointdreamer_tpu/kernels/winograd_pallas.py:145",
                max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                library_ms=0.0)
+    # ragged: tile rows and columns that are no multiple of the kernel's
+    # 8 x 8 tile block; the second also Cin and Cout no multiple of 64
+    for B, H, W, Cin, Cout in ((1, 24, 20, 128, 128), (2, 22, 38, 48, 96)):
+        x = torch.randn((B, H, W, Cin), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        w = torch.randn((3, 3, Cin, Cout), generator=gen,
+                        device=dev) / math.sqrt(9 * Cin)
+        got = winograd_conv3x3(x, w).float()
+        want = winograd_conv3x3_plain(x, w).float()
+        torch.cuda.synchronize()
+        rel = float((got - want).abs().max()) / float(want.abs().max())
+        print(f"[K6 winograd] {[B, H, W, Cin]} -> {Cout}: relative error "
+              f"{rel:.3g} against the plain version")
+        if not rel <= 1e-2:
+            fail(f"K6 {[B, H, W, Cin, Cout]}: relative error {rel}")
     by = ops = 0.0
     for B, H, W, Cin, Cout in ((8, 256, 256, 256, 256),
                                (8, 16, 16, 1024, 1024)):
@@ -356,6 +442,8 @@ def check_winograd(dev, gen) -> dict:
             fail(f"K6 {[B, H, W, Cin, Cout]}: relative error {rel} against "
                  f"the plain version, {rel_lib} against F.conv2d")
         ms = cuda_ms(lambda: winograd_conv3x3(x, w))
+        u = transform_weights(w).contiguous()
+        kms = cuda_ms(lambda: winograd_conv3x3_pretransformed(x, u))
         pms = cuda_ms(lambda: winograd_conv3x3_plain(x, w), reps=3,
                       warmup=1)
         lms = cuda_ms(lambda: F_.conv2d(xl, wl, padding=1))
@@ -369,14 +457,15 @@ def check_winograd(dev, gen) -> dict:
         print(f"[K6 winograd] {[B, H, W, Cin]} -> {Cout}: max_abs_err="
               f"{err:.3g} (rel {rel:.3g}; vs conv2d rel {rel_lib:.3g}) "
               f"ms={ms:.4f} plain_ms={pms:.4f} conv2d_ms={lms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by}; direct conv {direct_ms:.4f})")
+              f"bound_ms={b_ms:.4f} ({b_by}; direct conv {direct_ms:.4f}); "
+              f"kernel alone on a precomputed U {kms:.4f}")
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["ms"] += ms
         row["plain_ms"] += pms
         row["library_ms"] += lms
         by += b_x
         ops += o_x
-        del x, got, want, lib
+        del x, got, want, lib, u
     row["bound_ms"], row["bound_by"] = bound(by, ops, BF16_OPS_PER_S)
     print(f"[K6 winograd] 2 shapes: ms={row['ms']:.4f} "
           f"plain_ms={row['plain_ms']:.4f} conv2d_ms={row['library_ms']:.4f} "
@@ -600,6 +689,7 @@ def main() -> int:
     # ---- 1. build ---------------------------------------------------
     t0 = time.perf_counter()
     kernels.lib()
+    check_tensor_cores(kernels.build())
     nhull.build()
     nqem.build()
     print(f"[build] kernels + hull + qem built in "
@@ -681,7 +771,7 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     k2 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0,
-              err=0.0)
+              err=0.0, device_ms=0.0, sdpa_device_ms=0.0)
     for T, heads, per_fwd in ((1024, 8, 5), (256, 16, 5), (64, 16, 6)):
         B, C = 8, heads * 64
         qkv = torch.randn((B, T, 3 * C), generator=gen, device=dev,
@@ -696,13 +786,18 @@ def main() -> int:
         ms = cuda_ms(lambda: attention_qkv(qkv, heads))
         pms = cuda_ms(lambda: attention_qkv_plain(qkv, heads))
         lms = cuda_ms(lambda: F_.scaled_dot_product_attention(q, k, v))
+        gms = graph_ms(lambda: attention_qkv(qkv, heads))
+        glms = graph_ms(lambda: F_.scaled_dot_product_attention(q, k, v))
         by = B * T * 3 * C * 2 + B * T * C * 2
         ops = 4.0 * B * heads * T * T * 64
         b_ms, b_by = bound(by, ops, BF16_OPS_PER_S)
         print(f"[K2 attention_qkv] B={B} T={T} heads={heads} "
               f"max_abs_err={err:.3g} ms={ms:.4f} plain_ms={pms:.4f} "
               f"sdpa_ms={lms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-              f"x{per_fwd} per UNet forward")
+              f"x{per_fwd} per UNet forward; device time (CUDA graph) "
+              f"{gms:.4f}, sdpa {glms:.4f}")
+        k2["device_ms"] += per_fwd * gms
+        k2["sdpa_device_ms"] += per_fwd * glms
         k2["ms"] += per_fwd * ms
         k2["plain_ms"] += per_fwd * pms
         k2["library_ms"] += per_fwd * lms
@@ -712,7 +807,9 @@ def main() -> int:
     k2_bound, k2_by = bound(k2["bytes"], k2["ops"], BF16_OPS_PER_S)
     print(f"[K2 attention_qkv] per UNet forward (16 launches): "
           f"ms={k2['ms']:.4f} plain_ms={k2['plain_ms']:.4f} "
-          f"sdpa_ms={k2['library_ms']:.4f} bound_ms={k2_bound:.4f}")
+          f"sdpa_ms={k2['library_ms']:.4f} bound_ms={k2_bound:.4f}; "
+          f"device time (CUDA graph) {k2['device_ms']:.4f}, sdpa "
+          f"{k2['sdpa_device_ms']:.4f}")
     table.append(dict(name="attention_qkv", route="cuda",
                       source="pointdreamer_tpu_torch/csrc/attention.cu",
                       replaces=("pointdreamer_tpu/kernels/"

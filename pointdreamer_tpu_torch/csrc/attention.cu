@@ -8,104 +8,121 @@
 // softmax((q . k) * hd^-1/2) @ v with an fp32 softmax.  The kernel takes
 // the JAX kernel's shapes: head dims 16, 32 and 64 (template
 // instantiations) and any T that is a multiple of 8; the last query and
-// key tiles are masked.  The backward is not a kernel: the wrapper
-// recomputes the attention with torch einsums, as the JAX package's custom
-// VJP does.
+// key tiles are masked (the kMask instantiations: rows past T read as
+// zeros and are not stored, keys past T score -inf; every 64-key tile
+// holds at least 8 real keys, so the running max stays finite).  The
+// backward is not a kernel: the wrapper recomputes the attention with
+// torch einsums, as the JAX package's custom VJP does.
 //
 // What bounds it on the H100: the two products, 4*B*heads*T^2*hd
 // operations, against few bytes (one read of qkv, one write of out).  The
 // TPU kernel kept one (batch, head)'s whole [T, T] fp32 logits in VMEM
 // (4 MB at T = 1024); that does not fit Hopper's 227 KB of shared memory,
-// so this kernel is flash-style:
-//   - one block of 256 threads per (64-query tile, head, batch);
-//   - 64-key tiles of K and V stream through shared memory, read straight
-//     from the packed layout (row stride 3*heads*hd, head offset
-//     3*hd*head), so no transposes are needed; when T % 64 != 0 (the
-//     kMask instantiations) rows past T read as zeros and keys past T
-//     score -inf, and the T % 64 == 0 path carries no masking;
-//   - an online softmax keeps each row's running max and sum in fp32 and
-//     rescales the fp32 output accumulators (4 x hd/16 per thread, in
-//     registers);
-//   - the tiles live in one typed struct (`Smem`), static where it fits
-//     in 48 KB, so the compiler sees fixed, distinct arrays;
-//   - the products run as plain fp32 FMAs.  wgmma/TMA come later.
+// so both kernels here are flash-style, reading K and V straight from the
+// packed layout (row stride 3*heads*hd, head offset 3*hd*head).
+//
+// bf16 (the UNet's path): tensor cores.
+//   - one block of 4 warps per (query tile, head, batch); each warp owns
+//     MT m-tiles of 16 query rows and keeps them in registers as mma A
+//     fragments (ldmatrix from the Q tile, loaded once into the second
+//     stage of the K/V ring before that stage's first use);
+//   - 64-key tiles of K and V stream through a two-stage shared ring by
+//     cp.async (16 bytes a thread, zero-filled past T): tile j+1 loads
+//     while tile j multiplies.  Rows are padded by 16 bytes (stride hd+8
+//     elements, an odd multiple of 16 bytes over 128), so the eight row
+//     addresses of an ldmatrix hit eight distinct bank groups;
+//   - S = Q K^T on mma.sync m16n8k16 (bf16 in, fp32 accumulators in
+//     registers; K's B fragments by ldmatrix from the [key][d] tile, each
+//     used by the warp's MT m-tiles);
+//   - online softmax in registers: the row max and sum across the quad by
+//     __shfl_xor_sync, p = exp2f(s * c - m * c) by one FFMA with
+//     c = hd^-1/2 * log2(e), the running O rescaled by exp2((m_old -
+//     m_new) * c);
+//   - the unnormalised P is rounded to bf16 and used straight from the
+//     accumulators as the A fragments of O += P V (the m16n8k16 C layout
+//     is the A layout), V's B fragments by ldmatrix.trans;
+//   - one divide by the row sum at the end; O goes through the warp's
+//     rows of the first ring stage and out as 16-byte stores.
+//   The plain version rounds the normalised weights to bf16; this kernel
+//   rounds the unnormalised P (the sum l is taken over the unrounded fp32
+//   P): the same function within bf16 rounding (tests/test_torch_attention
+//   .py models this arithmetic against the Pallas kernel).
+//   By count, each warp reads the whole K and V tile by ldmatrix (16 KB
+//   at hd 64) for its 16 MT rows, so at MT = 1 shared memory's 128 bytes
+//   a clock are as near a limit as the tensor cores.  MT = 2 (128-query
+//   blocks) halves those reads per query but halves the blocks and needs
+//   more registers, so the launcher takes it where the 128-query grid
+//   still covers the SMs: the UNet's T = 1024 and 256 (batch 8), not its
+//   T = 64 nor the training CLI's small grids.  -Xptxas -v at hd 16 / 32
+//   / 64: 85-96 / 121-130 / 146-151 registers at MT = 1 and 168 /
+//   178-184 / 244 at MT = 2, no spills (at hd 64, 3 and 2 blocks an SM);
+//   static shared memory, the two ring stages: 12 / 20 / 36 KB.
+//
+// fp32 (the training CLI's hd 16 model): CUDA-core FMAs.  On tensor cores
+// fp32 operands would run as TF32 (10-bit mantissas), which breaks the
+// 1e-5 agreement with the plain version that training and its tests hold
+// it to, so it keeps the first design: one block of 256 threads per
+// 64-query tile, K and V tiles through shared memory, scores and P V as
+// fp32 FMAs, the softmax through a shared [64 x 65] array.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tc.cuh"
+
 namespace {
 
 constexpr int kTq = 64;       // queries per block
 constexpr int kTk = 64;       // keys per tile
-constexpr int kThreads = 256;
 
-// shared-memory row stride in elements: an odd number of 32-bit words, so
-// the row-strided reads hit distinct banks
-template <typename T, int HD>
-struct Tile {
-  static constexpr int kLd = sizeof(T) == 2 ? HD + 2 : HD + 1;
-};
+// ---------------------------------------------------------------- fp32 --
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+constexpr int kFmaThreads = 256;
 
 // rows [0, 64) of a 64 x HD tile from src (row stride `row_stride`
-// elements); with kMask, rows at or past `valid` are zero-filled
-template <typename T, int HD, bool kMask>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
-                                          int64_t row_stride, int valid) {
-  constexpr int kLd = Tile<T, HD>::kLd;
-  constexpr int kVec = 16 / sizeof(T);          // elements per 16 bytes
-  constexpr int kPerRow = HD / kVec;
-  for (int i = threadIdx.x; i < kTk * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+// elements) into a row stride of HD + 1 (odd: the row-strided reads hit
+// distinct banks); with kMask, rows at or past `valid` are zero-filled
+template <int HD, bool kMask>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
+                                              int64_t row_stride, int valid) {
+  constexpr int kPerRow = HD / 4;
+  for (int i = threadIdx.x; i < kTk * kPerRow; i += kFmaThreads) {
+    const int r = i / kPerRow, c = (i % kPerRow) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (!kMask || r < valid)
-      val = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-    if constexpr (sizeof(T) == 2) {
-      uint32_t* d = reinterpret_cast<uint32_t*>(dst + r * kLd + c);
-      d[0] = val.x; d[1] = val.y; d[2] = val.z; d[3] = val.w;
-    } else {
-      float* d = reinterpret_cast<float*>(dst + r * kLd + c);
-      d[0] = __uint_as_float(val.x); d[1] = __uint_as_float(val.y);
-      d[2] = __uint_as_float(val.z); d[3] = __uint_as_float(val.w);
-    }
+      val = *reinterpret_cast<const float4*>(src + r * row_stride + c);
+    float* d = dst + r * (HD + 1) + c;
+    d[0] = val.x; d[1] = val.y; d[2] = val.z; d[3] = val.w;
   }
 }
 
-// the block's shared memory: static where it fits in 48 KB (every
-// instantiation but fp32 hd 64), dynamic otherwise
-template <typename T, int HD>
-struct Smem {
-  T q[kTq][Tile<T, HD>::kLd];
-  T k[kTk][Tile<T, HD>::kLd];
-  T v[kTk][Tile<T, HD>::kLd];
+// the block's shared memory: static where it fits in 48 KB (hd 16 and 32),
+// dynamic for hd 64
+template <int HD>
+struct SmemF32 {
+  float q[kTq][HD + 1];
+  float k[kTk][HD + 1];
+  float v[kTk][HD + 1];
   float s[kTq][kTk + 1];
   float m[kTq], l[kTq], a[kTq];
 };
 
-template <typename T, int HD>
-constexpr bool kStaticSmem = sizeof(Smem<T, HD>) <= 48 * 1024;
+template <int HD>
+constexpr bool kStaticSmem = sizeof(SmemF32<HD>) <= 48 * 1024;
 
-template <typename T, int HD, bool kMask>
-__global__ void __launch_bounds__(kThreads)
-attn_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, int T_,
-                int heads, float scale2) {
+template <int HD, bool kMask>
+__global__ void __launch_bounds__(kFmaThreads)
+attn_fma_kernel(const float* __restrict__ qkv, float* __restrict__ out,
+                int T_, int heads, float scale2) {
   constexpr int kJ = HD / 16;                   // output dims per thread
-  Smem<T, HD>* sm;
-  if constexpr (kStaticSmem<T, HD>) {
-    __shared__ Smem<T, HD> st;
+  SmemF32<HD>* sm;
+  if constexpr (kStaticSmem<HD>) {
+    __shared__ SmemF32<HD> st;
     sm = &st;
   } else {
     extern __shared__ __align__(16) unsigned char dyn[];
-    sm = reinterpret_cast<Smem<T, HD>*>(dyn);
+    sm = reinterpret_cast<SmemF32<HD>*>(dyn);
   }
   auto& sq = sm->q;
   auto& sk = sm->k;
@@ -120,10 +137,10 @@ attn_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, int T_,
   const int b = blockIdx.z;
   const int C = heads * HD;
   const int64_t stride = 3 * (int64_t)C;
-  const T* base = qkv + (int64_t)b * T_ * stride + h * 3 * HD;
+  const float* base = qkv + (int64_t)b * T_ * stride + h * 3 * HD;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  load_tile<T, HD, kMask>(&sq[0][0], base + q0 * stride, stride, T_ - q0);
+  load_tile_f32<HD, kMask>(&sq[0][0], base + q0 * stride, stride, T_ - q0);
   if (threadIdx.x < kTq) {
     s_m[threadIdx.x] = -INFINITY;
     s_l[threadIdx.x] = 0.f;
@@ -136,10 +153,10 @@ attn_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, int T_,
 
   for (int k0 = 0; k0 < T_; k0 += kTk) {
     const int kvalid = T_ - k0;                 // >= 8: every tile has keys
-    load_tile<T, HD, kMask>(&sk[0][0], base + k0 * stride + HD, stride,
-                            kvalid);
-    load_tile<T, HD, kMask>(&sv[0][0], base + k0 * stride + 2 * HD, stride,
-                            kvalid);
+    load_tile_f32<HD, kMask>(&sk[0][0], base + k0 * stride + HD, stride,
+                             kvalid);
+    load_tile_f32<HD, kMask>(&sv[0][0], base + k0 * stride + 2 * HD, stride,
+                             kvalid);
     __syncthreads();
     // scores: rows ty+16i, keys tx+16j
     float acc[4][4];
@@ -150,9 +167,9 @@ attn_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, int T_,
     for (int d = 0; d < HD; ++d) {
       float qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = to_f(sq[ty + 16 * i][d]);
+      for (int i = 0; i < 4; ++i) qv[i] = sq[ty + 16 * i][d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = to_f(sk[tx + 16 * j][d]);
+      for (int j = 0; j < 4; ++j) kv[j] = sk[tx + 16 * j][d];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -205,7 +222,7 @@ attn_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, int T_,
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = ss[ty + 16 * i][k];
 #pragma unroll
-      for (int j = 0; j < kJ; ++j) vv[j] = to_f(sv[k][tx + 16 * j]);
+      for (int j = 0; j < kJ; ++j) vv[j] = sv[k][tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -218,33 +235,282 @@ attn_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, int T_,
     const int r = ty + 16 * i;
     if (kMask && q0 + r >= T_) continue;
     const float inv = 1.f / s_l[r];
-    T* dst = out + ((int64_t)b * T_ + q0 + r) * C + h * HD;
+    float* dst = out + ((int64_t)b * T_ + q0 + r) * C + h * HD;
 #pragma unroll
-    for (int j = 0; j < kJ; ++j) from_f(dst + tx + 16 * j, o[i][j] * inv);
+    for (int j = 0; j < kJ; ++j) dst[tx + 16 * j] = o[i][j] * inv;
   }
 }
 
-template <typename T, int HD, bool kMask>
-int launch_masked(const void* qkv, void* out, int B, int T_, int heads,
-                  float scale2, cudaStream_t stream) {
-  constexpr int bytes = kStaticSmem<T, HD> ? 0 : (int)sizeof(Smem<T, HD>);
+template <int HD, bool kMask>
+int launch_f32_masked(const void* qkv, void* out, int B, int T_, int heads,
+                      float scale2, cudaStream_t stream) {
+  constexpr int bytes = kStaticSmem<HD> ? 0 : (int)sizeof(SmemF32<HD>);
   if (bytes) {
     cudaError_t e = cudaFuncSetAttribute(
-        attn_qkv_kernel<T, HD, kMask>,
+        attn_fma_kernel<HD, kMask>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((T_ + kTq - 1) / kTq, heads, B);
-  attn_qkv_kernel<T, HD, kMask><<<grid, kThreads, bytes, stream>>>(
-      (const T*)qkv, (T*)out, T_, heads, scale2);
+  attn_fma_kernel<HD, kMask><<<grid, kFmaThreads, bytes, stream>>>(
+      (const float*)qkv, (float*)out, T_, heads, scale2);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
-int launch(const void* qkv, void* out, int B, int T_, int heads,
+// ---------------------------------------------------------------- bf16 --
+
+constexpr int kWarps = 4;
+typedef __nv_bfloat16 bf16;
+
+// two stages of K and V tiles; stage 1 holds the Q tile (64 or 128 rows)
+// until its fragments are in registers, stage 0 the output on the way out
+template <int HD>
+struct SmemBf16 {
+  static constexpr int kLd = HD + 8;          // row stride, elements
+  bf16 kv[2][2][kTk][kLd];                    // [stage][k, v][key][d]
+};
+
+// MT m-tiles of 16 query rows a warp: a block takes 64 MT queries
+template <int HD, bool kMask, int MT>
+__global__ void __launch_bounds__(32 * kWarps, 1)
+attn_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                int T_, int heads, float scale2) {
+  constexpr int kLd = SmemBf16<HD>::kLd;
+  constexpr int kRows = 16 * MT * kWarps;     // queries per block
+  constexpr int kChunks = HD / 8;             // 16-byte chunks per row
+  constexpr int kD16 = HD / 16;               // k-steps of Q K^T
+  constexpr int kN8 = HD / 8;                 // n-tiles of O
+  __shared__ __align__(128) SmemBf16<HD> sm;
+  // a stage's K and V tiles, seen as one [128][kLd] array
+  auto rows = [&](int stage) {
+    return reinterpret_cast<bf16 (*)[kLd]>(&sm.kv[stage][0][0][0]);
+  };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * kRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int C = heads * HD;
+  const int64_t stride = 3 * (int64_t)C;
+  const bf16* base = qkv + (int64_t)b * T_ * stride + h * 3 * HD;
+
+  // n rows from rows row0.. at column col of the head; rows past T are
+  // zero-filled
+  auto load = [&](bf16 (*dst)[kLd], int n, int row0, int col) {
+    for (int i = threadIdx.x; i < n * kChunks; i += 32 * kWarps) {
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      const bool ok = !kMask || row0 + r < T_;
+      tc::cp_async16(&dst[r][c],
+                     base + (ok ? (int64_t)(row0 + r) * stride : 0) + col + c,
+                     ok);
+    }
+  };
+
+  const int n_tiles = (T_ + kTk - 1) / kTk;
+  load(rows(1), kRows, q0, 0);
+  load(sm.kv[0][0], kTk, 0, HD);
+  load(sm.kv[0][1], kTk, 0, 2 * HD);
+  tc::cp_async_commit();
+
+  const float sl2 = scale2 * 1.4426950408889634f;   // scale * log2(e)
+  uint32_t qf[MT][kD16][4];
+  float o[MT][kN8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < kN8; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) o[mt][n][r] = 0.f;
+  // rows g and g + 8 of each of the warp's m-tiles (lane = 4 g + t):
+  // running max of the raw scores and this lane's part of the running sum
+  float m0[MT], m1[MT], l0[MT], l1[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m0[mt] = m1[mt] = -INFINITY;
+    l0[mt] = l1[mt] = 0.f;
+  }
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int buf = j & 1;
+    tc::cp_async_wait<0>();
+    __syncthreads();              // tile j landed; tile j-1's buffers free
+    if (j == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < kD16; ++kk)
+          tc::ldmatrix_x4(qf[mt][kk],
+                          &rows(1)[16 * (MT * warp + mt) + (lane & 15)]
+                                  [16 * kk + (lane >> 4) * 8]);
+      __syncthreads();            // the Q tile's stage is free for tile 1
+    }
+    if (j + 1 < n_tiles) {
+      load(sm.kv[buf ^ 1][0], kTk, (j + 1) * kTk, HD);
+      load(sm.kv[buf ^ 1][1], kTk, (j + 1) * kTk, 2 * HD);
+      tc::cp_async_commit();
+    }
+
+    // S = Q K^T: 8 n-tiles of 8 keys, each K fragment used by every m-tile
+    float s[MT][8][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) s[mt][n][r] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kD16; ++kk)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t kb[4];
+        tc::ldmatrix_x4(kb, &sm.kv[buf][0][16 * np + (lane & 7) +
+                                           ((lane >> 4) << 3)]
+                                          [16 * kk + ((lane >> 3) & 1) * 8]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          tc::mma_bf16(s[mt][2 * np], qf[mt][kk], kb[0], kb[1]);
+          tc::mma_bf16(s[mt][2 * np + 1], qf[mt][kk], kb[2], kb[3]);
+        }
+      }
+
+    // online softmax: row maxima of the raw scores, p = 2^(s*sl2 - m*sl2)
+    // by one FFMA and exp2
+    const int key0 = j * kTk + 2 * (lane & 3);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float mx0 = m0[mt], mx1 = m1[mt];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (kMask && key0 + 8 * n + (r & 1) >= T_) s[mt][n][r] = -INFINITY;
+          if (r < 2) mx0 = fmaxf(mx0, s[mt][n][r]);
+          else mx1 = fmaxf(mx1, s[mt][n][r]);
+        }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float a0 = exp2f((m0[mt] - mx0) * sl2);
+      const float a1 = exp2f((m1[mt] - mx1) * sl2);
+      m0[mt] = mx0;
+      m1[mt] = mx1;
+      const float b0 = -mx0 * sl2, b1 = -mx1 * sl2;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        s[mt][n][0] = exp2f(fmaf(s[mt][n][0], sl2, b0));
+        s[mt][n][1] = exp2f(fmaf(s[mt][n][1], sl2, b0));
+        s[mt][n][2] = exp2f(fmaf(s[mt][n][2], sl2, b1));
+        s[mt][n][3] = exp2f(fmaf(s[mt][n][3], sl2, b1));
+        rs0 += s[mt][n][0] + s[mt][n][1];
+        rs1 += s[mt][n][2] + s[mt][n][3];
+      }
+      l0[mt] = l0[mt] * a0 + rs0;
+      l1[mt] = l1[mt] * a1 + rs1;
+#pragma unroll
+      for (int n = 0; n < kN8; ++n) {
+        o[mt][n][0] *= a0;
+        o[mt][n][1] *= a0;
+        o[mt][n][2] *= a1;
+        o[mt][n][3] *= a1;
+      }
+    }
+
+    // O += P V: P's bf16 A fragments straight from the S accumulators,
+    // each V fragment used by every m-tile
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t pa[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        pa[mt][0] = tc::pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+        pa[mt][1] = tc::pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+        pa[mt][2] = tc::pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+        pa[mt][3] = tc::pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        uint32_t vb[4];
+        tc::ldmatrix_x4_trans(vb, &sm.kv[buf][1][16 * kk + (lane & 15)]
+                                               [16 * dp + (lane >> 4) * 8]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          tc::mma_bf16(o[mt][2 * dp], pa[mt], vb[0], vb[1]);
+          tc::mma_bf16(o[mt][2 * dp + 1], pa[mt], vb[2], vb[3]);
+        }
+      }
+    }
+  }
+
+  // the row sums across the quad, one divide, bf16 through the warp's own
+  // rows of stage 0, then 16-byte stores
+  __syncthreads();                // every warp is done with the last tile
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  bf16 (*so)[kLd] = rows(0) + 16 * MT * warp;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float s0 = l0[mt], s1 = l1[mt];
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    const float inv0 = 1.f / s0, inv1 = 1.f / s1;
+#pragma unroll
+    for (int n = 0; n < kN8; ++n) {
+      *reinterpret_cast<uint32_t*>(&so[16 * mt + g][8 * n + t2]) =
+          tc::pack_bf16(o[mt][n][0] * inv0, o[mt][n][1] * inv0);
+      *reinterpret_cast<uint32_t*>(&so[16 * mt + g + 8][8 * n + t2]) =
+          tc::pack_bf16(o[mt][n][2] * inv1, o[mt][n][3] * inv1);
+    }
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * MT * kChunks; i += 32) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const int row = q0 + 16 * MT * warp + r;
+    if (kMask && row >= T_) continue;
+    *reinterpret_cast<uint4*>(out + ((int64_t)b * T_ + row) * C + h * HD + c) =
+        *reinterpret_cast<const uint4*>(&so[r][c]);
+  }
+}
+
+template <int HD, int MT>
+int launch_bf16(const void* qkv, void* out, int B, int T_, int heads,
+                float scale2, cudaStream_t stream) {
+  constexpr int kRows = 16 * MT * kWarps;
+  dim3 grid((T_ + kRows - 1) / kRows, heads, B);
+  if (T_ % kRows)
+    attn_mma_kernel<HD, true, MT><<<grid, 32 * kWarps, 0, stream>>>(
+        (const bf16*)qkv, (bf16*)out, T_, heads, scale2);
+  else
+    attn_mma_kernel<HD, false, MT><<<grid, 32 * kWarps, 0, stream>>>(
+        (const bf16*)qkv, (bf16*)out, T_, heads, scale2);
+  return (int)cudaGetLastError();
+}
+
+// the card's SM count, read once
+int sm_count() {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+template <int HD>
+int launch(const void* qkv, void* out, int B, int T_, int heads, int is_bf16,
            float scale2, cudaStream_t stream) {
-  return T_ % kTq ? launch_masked<T, HD, true>(qkv, out, B, T_, heads, scale2, stream)
-                  : launch_masked<T, HD, false>(qkv, out, B, T_, heads, scale2, stream);
+  // 2 m-tiles a warp (128-query blocks) read each K and V fragment for
+  // twice the rows, where the grid of 128-query blocks still covers the
+  // SMs; otherwise 64-query blocks keep more blocks in flight
+  if (is_bf16)
+    return (int64_t)(T_ + 127) / 128 * heads * B >= sm_count()
+               ? launch_bf16<HD, 2>(qkv, out, B, T_, heads, scale2, stream)
+               : launch_bf16<HD, 1>(qkv, out, B, T_, heads, scale2, stream);
+  return T_ % kTq ? launch_f32_masked<HD, true>(qkv, out, B, T_, heads, scale2, stream)
+                  : launch_f32_masked<HD, false>(qkv, out, B, T_, heads, scale2, stream);
 }
 
 }  // namespace
@@ -259,15 +525,9 @@ int pd_attention_qkv(const void* qkv, void* out, int B, int T, int heads,
                      int hd, int is_bf16, float scale2, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (T <= 0 || T % 8) return (int)cudaErrorInvalidValue;
-  if (is_bf16) {
-    if (hd == 64) return launch<__nv_bfloat16, 64>(qkv, out, B, T, heads, scale2, s);
-    if (hd == 32) return launch<__nv_bfloat16, 32>(qkv, out, B, T, heads, scale2, s);
-    if (hd == 16) return launch<__nv_bfloat16, 16>(qkv, out, B, T, heads, scale2, s);
-  } else {
-    if (hd == 64) return launch<float, 64>(qkv, out, B, T, heads, scale2, s);
-    if (hd == 32) return launch<float, 32>(qkv, out, B, T, heads, scale2, s);
-    if (hd == 16) return launch<float, 16>(qkv, out, B, T, heads, scale2, s);
-  }
+  if (hd == 64) return launch<64>(qkv, out, B, T, heads, is_bf16, scale2, s);
+  if (hd == 32) return launch<32>(qkv, out, B, T, heads, is_bf16, scale2, s);
+  if (hd == 16) return launch<16>(qkv, out, B, T, heads, is_bf16, scale2, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,10 +1,12 @@
 """Build and bind the port's hand-written Hopper kernels.
 
-The CUDA sources under `pointdreamer_tpu_torch/csrc/*.cu` have a plain C
-interface.  At first use they are compiled with `nvcc` for `sm_90a` (one
-process per source, all started together), linked into one shared library
-in the git-ignored build directory `<repo>/build/pointdreamer_tpu_torch/`,
-and loaded with ctypes.  Nothing here runs at import time.
+The CUDA sources under `pointdreamer_tpu_torch/csrc/*.cu` (and the
+tensor-core helpers they share, `csrc/tc.cuh`) have a plain C interface.
+At first use they are compiled with `nvcc` for `sm_90a` (one process per
+source, all started together), linked into one shared library in the
+git-ignored build directory `<repo>/build/pointdreamer_tpu_torch/`, and
+loaded with ctypes.  Nothing here runs at import time.  `sass_mma_counts`
+counts the tensor-core instructions of each kernel in the built library.
 
 Each wrapper (ops/raster.py for K1 and K4, models/diffusion/attention.py,
 pipeline/optimize.py, kernels/groupnorm.py, kernels/winograd.py) adds one
@@ -31,6 +33,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
                          "pointdreamer_tpu_torch")
 SOURCES = ("raster.cu", "raster_legacy.cu", "attention.cu", "segsum.cu",
            "groupnorm.cu", "winograd.cu")
+HEADERS = ("tc.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -77,7 +80,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
     return h.hexdigest()[:16]
@@ -85,7 +88,9 @@ def _source_hash() -> str:
 
 def build() -> str:
     """Compile every source (in parallel) and link one .so; returns its
-    path.  Reuses a library built from the same sources and flags."""
+    path.  Reuses a library built from the same sources and flags.  What
+    `-Xptxas -v` says of each kernel (registers, shared memory, spills) is
+    kept beside it in `<so>.ptxas.txt`."""
     out = os.path.join(BUILD_DIR, f"libpd_kernels_{_source_hash()}.so")
     if os.path.exists(out):
         return out
@@ -98,11 +103,13 @@ def build() -> str:
             obj = os.path.join(tmp, name + ".o")
             objs.append(obj)
             procs.append((name, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, name), "-o", obj],
+                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                 os.path.join(CSRC, name), "-o", obj],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-        failed = []
+        failed, logs = [], []
         for name, p in procs:
             log = p.communicate()[0].decode(errors="replace")
+            logs.append(f"== {name}\n{log}")
             if p.returncode:
                 failed.append(f"{name}:\n{log}")
         if failed:
@@ -110,10 +117,36 @@ def build() -> str:
         so = os.path.join(tmp, "lib.so")
         subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], *objs, "-o", so],
                        check=True)
+        with open(out + ".ptxas.txt", "w") as f:
+            f.write("\n".join(logs))
         os.replace(so, out)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+def mma_counts(sass: str) -> Dict[str, int]:
+    """Tensor-core instructions (HMMA, HGMMA) in each function of a
+    `cuobjdump -sass` listing, by the function's (mangled) name."""
+    counts: Dict[str, int] = {}
+    name = None
+    for line in sass.splitlines():
+        head = line.strip()
+        if head.startswith("Function : "):
+            name = head[len("Function : "):].strip()
+            counts.setdefault(name, 0)
+        elif name is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    return counts
+
+
+def sass_mma_counts(path: str) -> Dict[str, int]:
+    """`mma_counts` of the built library at `path` (cuobjdump from the
+    toolkit that holds nvcc)."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    return mma_counts(sass)
 
 
 def build_host(source: str) -> str:

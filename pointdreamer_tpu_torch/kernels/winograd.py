@@ -9,11 +9,11 @@ A CUDA tensor (bf16, H and W even, Cin % 16 == 0, Cout % 32 == 0)
 launches csrc/winograd.cu; a CPU tensor takes the plain version: V =
 B^T d B in x's dtype with the Pallas kernel's add pattern, the 16 products
 with U accumulated in fp32, the fp32 output transform A^T M A, a cast to
-x's dtype.
+x's dtype.  `winograd_conv3x3_pretransformed(x, u)` launches the kernel on
+a U made in advance (XLA hoists the transform out of the JAX package's
+denoise loop).
 """
 from __future__ import annotations
-
-from typing import List
 
 import torch
 import torch.nn.functional as F
@@ -21,13 +21,15 @@ import torch.nn.functional as F
 from . import LAUNCHES, check, lib, require_cuda_tensor, stream_ptr
 
 
-def _g_rows(a: List[torch.Tensor]) -> List[torch.Tensor]:
-    """G @ a over a 3-list: the rows [1,0,0], [.5,.5,.5], [.5,-.5,.5],
-    [0,0,1] of the F(2x2,3x3) weight transform, summed in index order (the
-    order XLA's einsum takes, so U is bit-equal to the JAX package's)."""
-    h = 0.5
-    return [a[0], (a[0] * h + a[1] * h) + a[2] * h,
-            (a[0] * h - a[1] * h) + a[2] * h, a[2]]
+def _g_rows(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """G @ a along `dim` (size 3 -> 4): the rows [1,0,0], [.5,.5,.5],
+    [.5,-.5,.5], [0,0,1] of the F(2x2,3x3) weight transform, summed in
+    index order (the order XLA's einsum takes, so U is bit-equal to the
+    JAX package's).  Whole-tensor ops, so the transform is a dozen
+    launches on the card."""
+    a0, a1, a2 = a.unbind(dim)
+    h0, h1, h2 = (a * 0.5).unbind(dim)
+    return torch.stack([a0, (h0 + h1) + h2, (h0 - h1) + h2, a2], dim)
 
 
 def transform_weights(w: torch.Tensor) -> torch.Tensor:
@@ -37,10 +39,8 @@ def transform_weights(w: torch.Tensor) -> torch.Tensor:
     if w.dim() != 4 or tuple(w.shape[:2]) != (3, 3):
         raise ValueError(f"w: expected [3, 3, Cin, Cout], got "
                          f"{tuple(w.shape)}")
-    wf = w.float()
-    rows = _g_rows([wf[i] for i in range(3)])          # [u] -> [3, Cin, Cout]
-    u = [uv for t in rows for uv in _g_rows([t[j] for j in range(3)])]
-    return torch.stack(u).to(torch.bfloat16)
+    u = _g_rows(_g_rows(w.float(), 0), 1)              # [4, 4, Cin, Cout]
+    return u.reshape(16, *w.shape[2:]).to(torch.bfloat16)
 
 
 def _check_shapes(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -83,23 +83,37 @@ def winograd_conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def _winograd_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def winograd_conv3x3_pretransformed(x: torch.Tensor,
+                                    u: torch.Tensor) -> torch.Tensor:
+    """The kernel alone on weights already transformed (u [16, Cin, Cout]
+    bf16 from `transform_weights`), as a caller that hoists the transform
+    out of a loop runs it; x a CUDA tensor."""
     require_cuda_tensor(x, "x", torch.bfloat16, 4)
-    _check_shapes(x, w)
+    require_cuda_tensor(u, "u", torch.bfloat16, 3)
     B, H, W, Cin = x.shape
-    Cout = w.shape[-1]
-    if Cin % 16 or Cout % 32:
-        raise ValueError(f"winograd kernel wants Cin % 16 == 0 and "
-                         f"Cout % 32 == 0, got {Cin} -> {Cout}")
-    if x.data_ptr() % 16:
-        raise ValueError("x: expected a 16-byte aligned tensor")
-    u = transform_weights(w.to(x.device)).contiguous()
+    Cout = u.shape[-1]
+    if H % 2 or W % 2:
+        raise ValueError(f"winograd_conv3x3 wants even H and W, got "
+                         f"{tuple(x.shape)}")
+    if u.shape[:2] != (16, Cin) or Cin % 16 or Cout % 32:
+        raise ValueError(f"winograd kernel wants u [16, Cin, Cout], Cin % 16 "
+                         f"== 0 and Cout % 32 == 0, got x {tuple(x.shape)}, "
+                         f"u {tuple(u.shape)}")
+    if x.data_ptr() % 16 or u.data_ptr() % 16:
+        raise ValueError("x, u: expected 16-byte aligned tensors")
     out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
     check(lib().pd_winograd_conv3x3(
         x.data_ptr(), u.data_ptr(), out.data_ptr(), B, H, W, Cin, Cout,
         stream_ptr(x.device)), "winograd_conv3x3")
     LAUNCHES["winograd_conv3x3"] += 1
     return out
+
+
+def _winograd_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    require_cuda_tensor(x, "x", torch.bfloat16, 4)
+    _check_shapes(x, w)
+    return winograd_conv3x3_pretransformed(
+        x, transform_weights(w.to(x.device)).contiguous())
 
 
 def winograd_conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

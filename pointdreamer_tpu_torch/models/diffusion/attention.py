@@ -7,9 +7,11 @@ softmax((q . k) * hd^-1/2) @ v, logits and softmax in fp32, output in the
 input dtype.  It is differentiable (`AttentionQKV`).  Forward: a CUDA
 tensor launches the flash-style Hopper kernel (csrc/attention.cu,
 replacing kernels/attention_pallas.py::fused_attention_qkv; fp32 or bf16,
-hd 16/32/64, T % 8 == 0); a CPU tensor takes the plain version, which
-follows the Pallas kernel's arithmetic: fp32 logits scaled by hd^-1/2,
-fp32 softmax, weights cast to the input dtype, fp32 products.  Backward,
+hd 16/32/64, T % 8 == 0; bf16 on the tensor cores, which round the
+unnormalised softmax weights to bf16, fp32 on CUDA-core FMAs); a CPU
+tensor takes the plain version, which follows the Pallas kernel's
+arithmetic: fp32 logits scaled by hd^-1/2, fp32 softmax, weights cast to
+the input dtype, fp32 products.  Backward,
 on either device: autograd through `attention_einsum_ref`, recomputed from
 the saved qkv, as the JAX package's custom VJP pulls the cotangent through
 `_attention_einsum_ref` (attention_pallas.py:132-134); the JAX package has

@@ -17,14 +17,16 @@ from pointdreamer_tpu.kernels.winograd_pallas import \
     transform_weights as jax_transform
 from pointdreamer_tpu.kernels.winograd_pallas import \
     winograd_conv3x3 as jax_winograd
-from pointdreamer_tpu_torch.kernels.winograd import (transform_weights,
-                                                     winograd_conv3x3,
-                                                     winograd_conv3x3_plain)
+from pointdreamer_tpu_torch.kernels.winograd import (
+    transform_weights, winograd_conv3x3, winograd_conv3x3_plain,
+    winograd_conv3x3_pretransformed)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-SHAPES = [((2, 16, 16, 128), 128), ((1, 8, 32, 256), 128)]
+# the last: 12 x 10 tiles, no multiple of the card kernel's 8 x 8 block
+SHAPES = [((2, 16, 16, 128), 128), ((1, 8, 32, 256), 128),
+          ((1, 24, 20, 128), 128)]
 
 
 def _inputs(shape, cout):
@@ -82,3 +84,11 @@ def test_winograd_center_tap_identity_and_odd_sizes():
     np.testing.assert_array_equal(u[:, 0, 0].float().numpy(), expect)
     with pytest.raises(ValueError, match="even H and W"):
         winograd_conv3x3_plain(torch.zeros((1, 7, 8, 4)), w)
+
+
+def test_pretransformed_needs_a_cuda_tensor():
+    # the kernel alone (on U made in advance) has no plain version to take
+    x, w = _inputs((1, 8, 8, 128), 128)
+    u = transform_weights(torch.as_tensor(w))
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        winograd_conv3x3_pretransformed(torch.as_tensor(x).bfloat16(), u)
