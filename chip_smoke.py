@@ -150,7 +150,8 @@ def check_tensor_cores(path: str) -> None:
             f"warp": f"attn_mma_kernelILi{hd}ELb{m}ELi{mt}E"
             for hd in (16, 32, 64) for m in (0, 1) for mt in (1, 2)}
     want["K6"] = "wino_mma_kernel"
-    ptxas = open(path + ".ptxas.txt").read()
+    with open(path + ".ptxas.txt") as f:
+        ptxas = f.read()
     for what, key in want.items():
         found = [c for name, c in counts.items() if key in name]
         regs = re.search(re.escape(key) + r".*?Used (\d+) registers",
@@ -390,15 +391,16 @@ def check_winograd(dev, gen) -> dict:
     """K6 against its plain version (relative max |d| <= 1e-2 of max |y|)
     at two ragged shapes, then also against F.conv2d in bf16,
     channels-last (<= 2e-2), at the UNet's dominant 3x3 conv and at the
-    16^2 x 1024 one.  Returns the table row (summed over the two timed
-    shapes)."""
+    16^2 x 1024 one, where the card's weight transform must also give the
+    plain transform's U bit for bit.  Returns the table row (summed over
+    the two timed shapes)."""
     import torch
     import torch.nn.functional as F_
 
     from pointdreamer_tpu_torch.kernels import BF16_OPS_PER_S
     from pointdreamer_tpu_torch.kernels.winograd import (
-        transform_weights, winograd_conv3x3, winograd_conv3x3_plain,
-        winograd_conv3x3_pretransformed)
+        transform_weights, transform_weights_plain, winograd_conv3x3,
+        winograd_conv3x3_plain, winograd_conv3x3_pretransformed)
 
     row = dict(name="winograd_conv3x3", route="cuda",
                source="pointdreamer_tpu_torch/csrc/winograd.cu",
@@ -441,8 +443,13 @@ def check_winograd(dev, gen) -> dict:
         if not (rel <= 1e-2 and rel_lib <= 2e-2):
             fail(f"K6 {[B, H, W, Cin, Cout]}: relative error {rel} against "
                  f"the plain version, {rel_lib} against F.conv2d")
+        u = transform_weights(w)
+        u_diff = int((u != transform_weights_plain(w)).sum())
+        if u_diff:
+            fail(f"K6 {[Cin, Cout]}: the card's weight transform differs "
+                 f"from the plain one at {u_diff} of {u.numel()} values")
         ms = cuda_ms(lambda: winograd_conv3x3(x, w))
-        u = transform_weights(w).contiguous()
+        tms = cuda_ms(lambda: transform_weights(w))
         kms = cuda_ms(lambda: winograd_conv3x3_pretransformed(x, u))
         pms = cuda_ms(lambda: winograd_conv3x3_plain(x, w), reps=3,
                       warmup=1)
@@ -458,7 +465,8 @@ def check_winograd(dev, gen) -> dict:
               f"{err:.3g} (rel {rel:.3g}; vs conv2d rel {rel_lib:.3g}) "
               f"ms={ms:.4f} plain_ms={pms:.4f} conv2d_ms={lms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}; direct conv {direct_ms:.4f}); "
-              f"kernel alone on a precomputed U {kms:.4f}")
+              f"kernel alone on a precomputed U {kms:.4f}, weight transform "
+              f"{tms:.4f} (U bit-equal to the plain transform's)")
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["ms"] += ms
         row["plain_ms"] += pms

@@ -3,14 +3,15 @@
 `winograd_conv3x3(x, w)`: x [B, H, W, Cin] (NHWC), w [3, 3, Cin, Cout]
 (HWIO) -> [B, H, W, Cout] in x's dtype; 'same' padding, stride 1 — the
 contract of kernels/winograd_pallas.py::winograd_conv3x3.  The weights go
-through `transform_weights` first (U = G w G^T in fp32, stored bf16).
+through `transform_weights` first (U = G w G^T in fp32, stored bf16; on
+the card one pass of a small kernel beside K6's).
 
 A CUDA tensor (bf16, H and W even, Cin % 16 == 0, Cout % 32 == 0)
 launches csrc/winograd.cu; a CPU tensor takes the plain version: V =
 B^T d B in x's dtype with the Pallas kernel's add pattern, the 16 products
 with U accumulated in fp32, the fp32 output transform A^T M A, a cast to
-x's dtype.  `winograd_conv3x3_pretransformed(x, u)` launches the kernel on
-a U made in advance (XLA hoists the transform out of the JAX package's
+x's dtype.  `winograd_conv3x3_pretransformed(x, u)` does the same on a U
+made in advance (XLA hoists the transform out of the JAX package's
 denoise loop).
 """
 from __future__ import annotations
@@ -25,22 +26,41 @@ def _g_rows(a: torch.Tensor, dim: int) -> torch.Tensor:
     """G @ a along `dim` (size 3 -> 4): the rows [1,0,0], [.5,.5,.5],
     [.5,-.5,.5], [0,0,1] of the F(2x2,3x3) weight transform, summed in
     index order (the order XLA's einsum takes, so U is bit-equal to the
-    JAX package's).  Whole-tensor ops, so the transform is a dozen
-    launches on the card."""
+    JAX package's)."""
     a0, a1, a2 = a.unbind(dim)
     h0, h1, h2 = (a * 0.5).unbind(dim)
     return torch.stack([a0, (h0 + h1) + h2, (h0 - h1) + h2, a2], dim)
 
 
-def transform_weights(w: torch.Tensor) -> torch.Tensor:
-    """[3, 3, Cin, Cout] -> U [16, Cin, Cout] with U[4u+v] = (G w G^T)[u,v],
-    computed in fp32 (G over the rows first, then the columns) and stored
-    bf16."""
+def _check_w(w: torch.Tensor) -> None:
     if w.dim() != 4 or tuple(w.shape[:2]) != (3, 3):
         raise ValueError(f"w: expected [3, 3, Cin, Cout], got "
                          f"{tuple(w.shape)}")
+
+
+def transform_weights_plain(w: torch.Tensor) -> torch.Tensor:
+    """[3, 3, Cin, Cout] -> U [16, Cin, Cout] with U[4u+v] = (G w G^T)[u,v],
+    computed in fp32 (G over the rows first, then the columns) and stored
+    bf16."""
+    _check_w(w)
     u = _g_rows(_g_rows(w.float(), 0), 1)              # [4, 4, Cin, Cout]
     return u.reshape(16, *w.shape[2:]).to(torch.bfloat16)
+
+
+def transform_weights(w: torch.Tensor) -> torch.Tensor:
+    """U of `transform_weights_plain`: CPU tensors take the plain version,
+    CUDA tensors one pass of csrc/winograd.cu's weight kernel (the same
+    fp32 operations in the same order, so U is bit-equal)."""
+    _check_w(w)
+    if w.device.type == "cpu":
+        return transform_weights_plain(w)
+    w = w.float().contiguous()
+    require_cuda_tensor(w, "w", torch.float32, 4)
+    u = torch.empty((16, *w.shape[2:]), dtype=torch.bfloat16, device=w.device)
+    check(lib().pd_winograd_transform_weights(
+        w.data_ptr(), u.data_ptr(), w.shape[2], w.shape[3],
+        stream_ptr(w.device)), "winograd_transform_weights")
+    return u
 
 
 def _check_shapes(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -53,11 +73,20 @@ def _check_shapes(x: torch.Tensor, w: torch.Tensor) -> None:
                          f"{tuple(x.shape)}")
 
 
-def winograd_conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    _check_shapes(x, w)
+def _check_u(x: torch.Tensor, u: torch.Tensor) -> None:
+    if x.dim() != 4 or u.dim() != 3 or tuple(u.shape[:2]) != (16, x.shape[3]):
+        raise ValueError(f"winograd_conv3x3 wants x [B,H,W,Cin] and u "
+                         f"[16,Cin,Cout], got {tuple(x.shape)}, "
+                         f"{tuple(u.shape)}")
+    if x.shape[1] % 2 or x.shape[2] % 2:
+        raise ValueError(f"winograd_conv3x3 wants even H and W, got "
+                         f"{tuple(x.shape)}")
+
+
+def _plain_on_u(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     B, H, W, Cin = x.shape
-    Cout = w.shape[-1]
-    u = transform_weights(w).float()
+    Cout = u.shape[-1]
+    u = u.float()
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))                  # [B, H+2, W+2, Cin]
 
     def s(i, j):   # d_tile[b, ty, tx] = xp[b, 2ty+i, 2tx+j]
@@ -83,22 +112,27 @@ def winograd_conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def winograd_conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    _check_shapes(x, w)
+    return _plain_on_u(x, transform_weights_plain(w))
+
+
 def winograd_conv3x3_pretransformed(x: torch.Tensor,
                                     u: torch.Tensor) -> torch.Tensor:
-    """The kernel alone on weights already transformed (u [16, Cin, Cout]
-    bf16 from `transform_weights`), as a caller that hoists the transform
-    out of a loop runs it; x a CUDA tensor."""
+    """K6 on weights already transformed (u [16, Cin, Cout] bf16 from
+    `transform_weights`), as a caller that hoists the transform out of a
+    loop runs it: CPU tensors take the plain version, CUDA tensors launch
+    the kernel."""
+    _check_u(x, u)
+    if x.device.type == "cpu":
+        return _plain_on_u(x, u)
     require_cuda_tensor(x, "x", torch.bfloat16, 4)
     require_cuda_tensor(u, "u", torch.bfloat16, 3)
     B, H, W, Cin = x.shape
     Cout = u.shape[-1]
-    if H % 2 or W % 2:
-        raise ValueError(f"winograd_conv3x3 wants even H and W, got "
-                         f"{tuple(x.shape)}")
-    if u.shape[:2] != (16, Cin) or Cin % 16 or Cout % 32:
-        raise ValueError(f"winograd kernel wants u [16, Cin, Cout], Cin % 16 "
-                         f"== 0 and Cout % 32 == 0, got x {tuple(x.shape)}, "
-                         f"u {tuple(u.shape)}")
+    if Cin % 16 or Cout % 32:
+        raise ValueError(f"winograd kernel wants Cin % 16 == 0 and Cout % 32 "
+                         f"== 0, got {Cin} -> {Cout}")
     if x.data_ptr() % 16 or u.data_ptr() % 16:
         raise ValueError("x, u: expected 16-byte aligned tensors")
     out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
@@ -109,16 +143,13 @@ def winograd_conv3x3_pretransformed(x: torch.Tensor,
     return out
 
 
-def _winograd_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    require_cuda_tensor(x, "x", torch.bfloat16, 4)
-    _check_shapes(x, w)
-    return winograd_conv3x3_pretransformed(
-        x, transform_weights(w.to(x.device)).contiguous())
-
-
 def winograd_conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K6 wrapper: CPU tensors take the plain version, CUDA tensors launch
-    the kernel."""
+    the weight kernel and K6."""
     if x.device.type == "cpu":
         return winograd_conv3x3_plain(x, w)
-    return _winograd_cuda(x.contiguous(), w)
+    x = x.contiguous()
+    require_cuda_tensor(x, "x", torch.bfloat16, 4)
+    _check_shapes(x, w)
+    return winograd_conv3x3_pretransformed(x,
+                                           transform_weights(w.to(x.device)))

@@ -17,6 +17,7 @@ from pointdreamer_tpu.kernels.winograd_pallas import \
     transform_weights as jax_transform
 from pointdreamer_tpu.kernels.winograd_pallas import \
     winograd_conv3x3 as jax_winograd
+from pointdreamer_tpu_torch.kernels import winograd as twino
 from pointdreamer_tpu_torch.kernels.winograd import (
     transform_weights, winograd_conv3x3, winograd_conv3x3_plain,
     winograd_conv3x3_pretransformed)
@@ -86,9 +87,31 @@ def test_winograd_center_tap_identity_and_odd_sizes():
         winograd_conv3x3_plain(torch.zeros((1, 7, 8, 4)), w)
 
 
-def test_pretransformed_needs_a_cuda_tensor():
-    # the kernel alone (on U made in advance) has no plain version to take
+def test_pretransformed_on_cpu_is_the_plain_version():
+    # the entry on U made in advance: on the CPU, the plain version from U,
+    # bit-equal to the function that transforms w itself
     x, w = _inputs((1, 8, 8, 128), 128)
+    xb = torch.as_tensor(x).bfloat16()
     u = transform_weights(torch.as_tensor(w))
+    got = winograd_conv3x3_pretransformed(xb, u)
+    want = winograd_conv3x3_plain(xb, torch.as_tensor(w))
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match=r"u \[16,Cin,Cout\]"):
+        winograd_conv3x3_pretransformed(xb, u[:, :64])
+
+
+def test_card_entries_refuse_other_devices(monkeypatch):
+    # the weight transform and the pretransformed entry take the plain
+    # version only on the CPU; any other device is refused before a launch
+    def no_library():
+        raise AssertionError("a non-CUDA tensor reached the CUDA library")
+
+    monkeypatch.setattr(twino, "lib", no_library)
+    w = torch.zeros((3, 3, 16, 32), device="meta")
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
-        winograd_conv3x3_pretransformed(torch.as_tensor(x).bfloat16(), u)
+        transform_weights(w)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        winograd_conv3x3_pretransformed(
+            torch.zeros((1, 8, 8, 16), dtype=torch.bfloat16, device="meta"),
+            torch.zeros((16, 16, 32), dtype=torch.bfloat16, device="meta"))
