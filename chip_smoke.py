@@ -7,7 +7,7 @@ Phases (each prints its own lines; any failure exits non-zero):
                 source in parallel, -Xptxas -v kept beside the library) and
                 the host hull and QEM libraries; count the tensor-core
                 instructions (HMMA/HGMMA, `cuobjdump -sass`) of K2's
-                twelve bf16 instantiations and of K6 and fail if any has
+                six bf16 instantiations and of K6 and fail if any has
                 none;
                 print their registers, the build seconds and the card's
                 name and power limit.
@@ -146,9 +146,9 @@ def check_tensor_cores(path: str) -> None:
     from pointdreamer_tpu_torch import kernels
 
     counts = kernels.sass_mma_counts(path)
-    want = {f"K2 bf16 hd {hd}{' masked' if m else ''}, {mt} m-tile(s) a "
-            f"warp": f"attn_mma_kernelILi{hd}ELb{m}ELi{mt}E"
-            for hd in (16, 32, 64) for m in (0, 1) for mt in (1, 2)}
+    want = {f"K2 bf16 hd {hd}{' masked' if m else ''}":
+            f"attn_mma_kernelILi{hd}ELb{m}E"
+            for hd in (16, 32, 64) for m in (0, 1)}
     want["K6"] = "wino_mma_kernel"
     with open(path + ".ptxas.txt") as f:
         ptxas = f.read()
@@ -391,16 +391,15 @@ def check_winograd(dev, gen) -> dict:
     """K6 against its plain version (relative max |d| <= 1e-2 of max |y|)
     at two ragged shapes, then also against F.conv2d in bf16,
     channels-last (<= 2e-2), at the UNet's dominant 3x3 conv and at the
-    16^2 x 1024 one, where the card's weight transform must also give the
-    plain transform's U bit for bit.  Returns the table row (summed over
-    the two timed shapes)."""
+    16^2 x 1024 one.  Returns the table row (summed over the two timed
+    shapes)."""
     import torch
     import torch.nn.functional as F_
 
     from pointdreamer_tpu_torch.kernels import BF16_OPS_PER_S
     from pointdreamer_tpu_torch.kernels.winograd import (
-        transform_weights, transform_weights_plain, winograd_conv3x3,
-        winograd_conv3x3_plain, winograd_conv3x3_pretransformed)
+        transform_weights, winograd_conv3x3, winograd_conv3x3_plain,
+        winograd_conv3x3_pretransformed)
 
     row = dict(name="winograd_conv3x3", route="cuda",
                source="pointdreamer_tpu_torch/csrc/winograd.cu",
@@ -444,10 +443,6 @@ def check_winograd(dev, gen) -> dict:
             fail(f"K6 {[B, H, W, Cin, Cout]}: relative error {rel} against "
                  f"the plain version, {rel_lib} against F.conv2d")
         u = transform_weights(w)
-        u_diff = int((u != transform_weights_plain(w)).sum())
-        if u_diff:
-            fail(f"K6 {[Cin, Cout]}: the card's weight transform differs "
-                 f"from the plain one at {u_diff} of {u.numel()} values")
         ms = cuda_ms(lambda: winograd_conv3x3(x, w))
         tms = cuda_ms(lambda: transform_weights(w))
         kms = cuda_ms(lambda: winograd_conv3x3_pretransformed(x, u))
@@ -466,7 +461,7 @@ def check_winograd(dev, gen) -> dict:
               f"ms={ms:.4f} plain_ms={pms:.4f} conv2d_ms={lms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}; direct conv {direct_ms:.4f}); "
               f"kernel alone on a precomputed U {kms:.4f}, weight transform "
-              f"{tms:.4f} (U bit-equal to the plain transform's)")
+              f"{tms:.4f}")
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["ms"] += ms
         row["plain_ms"] += pms
@@ -487,7 +482,8 @@ def check_attention_training(dev, gen) -> None:
     and bf16 hd 32 at ragged T; then the gradient (kernel forward,
     reference backward) against autograd through the plain version, at
     the CLI's shape and the 552.8M UNet's T = 1024.  fp32 within 1e-5
-    (forward) and 1e-4 of max |grad|; bf16 within 2e-2."""
+    (forward) and 1e-4 of max |grad|; bf16 within 2e-2, the forward also
+    within 2e-2 of max |out|."""
     import torch
 
     from pointdreamer_tpu_torch.models.diffusion.attention import (
@@ -502,12 +498,14 @@ def check_attention_training(dev, gen) -> None:
         ref = attention_qkv_plain(qkv, heads)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
+        rel = err / float(ref.float().abs().max())
         tol = 1e-5 if dt == f32 else 2e-2
-        if not err <= tol:
-            fail(f"K2 {dt} hd={hd} T={T}: max abs err {err}")
+        if not (err <= tol and (dt == f32 or rel <= 2e-2)):
+            fail(f"K2 {dt} hd={hd} T={T}: max abs err {err}, relative to "
+                 f"max |out| {rel}")
         ms = cuda_ms(lambda: attention_qkv(qkv, heads))
         print(f"[K2 attention_qkv] {str(dt)[6:]} B={B} T={T} heads={heads} "
-              f"hd={hd} max_abs_err={err:.3g} ms={ms:.4f}")
+              f"hd={hd} max_abs_err={err:.3g} (rel {rel:.3g}) ms={ms:.4f}")
     for B, T, heads, hd, dt in ((64, 64, 4, 16, f32), (4, 1024, 8, 64, bf16)):
         qkv = torch.randn((B, T, 3 * heads * hd), generator=gen,
                           device=dev).to(dt)
@@ -788,8 +786,12 @@ def main() -> int:
         ref = attention_qkv_plain(qkv, heads)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
-        if not (err <= 2e-2):
-            fail(f"K2 T={T} heads={heads}: max abs err {err}")
+        # the 2e-2 gate, and beside it one relative to the shape's outputs
+        # (a few bf16 ulps of max |out|: |out| falls as T grows)
+        rel = err / float(ref.float().abs().max())
+        if not (err <= 2e-2 and rel <= 2e-2):
+            fail(f"K2 T={T} heads={heads}: max abs err {err}, relative to "
+                 f"max |out| {rel}")
         q, k, v = qkv.reshape(B, T, heads, 3, 64).permute(3, 0, 2, 1, 4)
         ms = cuda_ms(lambda: attention_qkv(qkv, heads))
         pms = cuda_ms(lambda: attention_qkv_plain(qkv, heads))
@@ -800,8 +802,9 @@ def main() -> int:
         ops = 4.0 * B * heads * T * T * 64
         b_ms, b_by = bound(by, ops, BF16_OPS_PER_S)
         print(f"[K2 attention_qkv] B={B} T={T} heads={heads} "
-              f"max_abs_err={err:.3g} ms={ms:.4f} plain_ms={pms:.4f} "
-              f"sdpa_ms={lms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"max_abs_err={err:.3g} (rel {rel:.3g}) ms={ms:.4f} "
+              f"plain_ms={pms:.4f} sdpa_ms={lms:.4f} bound_ms={b_ms:.4f} "
+              f"({b_by}) "
               f"x{per_fwd} per UNet forward; device time (CUDA graph) "
               f"{gms:.4f}, sdpa {glms:.4f}")
         k2["device_ms"] += per_fwd * gms

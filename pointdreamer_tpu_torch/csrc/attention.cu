@@ -22,9 +22,9 @@
 // packed layout (row stride 3*heads*hd, head offset 3*hd*head).
 //
 // bf16 (the UNet's path): tensor cores.
-//   - one block of 4 warps per (query tile, head, batch); each warp owns
-//     MT m-tiles of 16 query rows and keeps them in registers as mma A
-//     fragments (ldmatrix from the Q tile, loaded once into the second
+//   - one block of 4 warps per (128-query tile, head, batch); each warp
+//     owns two m-tiles of 16 query rows and keeps them in registers as mma
+//     A fragments (ldmatrix from the Q tile, loaded once into the second
 //     stage of the K/V ring before that stage's first use);
 //   - 64-key tiles of K and V stream through a two-stage shared ring by
 //     cp.async (16 bytes a thread, zero-filled past T): tile j+1 loads
@@ -33,7 +33,7 @@
 //     addresses of an ldmatrix hit eight distinct bank groups;
 //   - S = Q K^T on mma.sync m16n8k16 (bf16 in, fp32 accumulators in
 //     registers; K's B fragments by ldmatrix from the [key][d] tile, each
-//     used by the warp's MT m-tiles);
+//     used by both of the warp's m-tiles);
 //   - online softmax in registers: the row max and sum across the quad by
 //     __shfl_xor_sync, p = exp2f(s * c - m * c) by one FFMA with
 //     c = hd^-1/2 * log2(e), the running O rescaled by exp2((m_old -
@@ -48,15 +48,13 @@
 //   P): the same function within bf16 rounding (tests/test_torch_attention
 //   .py models this arithmetic against the Pallas kernel).
 //   By count, each warp reads the whole K and V tile by ldmatrix (16 KB
-//   at hd 64) for its 16 MT rows, so at MT = 1 shared memory's 128 bytes
-//   a clock are as near a limit as the tensor cores.  MT = 2 (128-query
-//   blocks) halves those reads per query but halves the blocks and needs
-//   more registers, so the launcher takes it where the 128-query grid
-//   still covers the SMs: the UNet's T = 1024 and 256 (batch 8), not its
-//   T = 64 nor the training CLI's small grids.  -Xptxas -v at hd 16 / 32
-//   / 64: 85-96 / 121-130 / 146-151 registers at MT = 1 and 168 /
-//   178-184 / 244 at MT = 2, no spills (at hd 64, 3 and 2 blocks an SM);
-//   static shared memory, the two ring stages: 12 / 20 / 36 KB.
+//   at hd 64) for its rows, so with one m-tile a warp shared memory's 128
+//   bytes a clock would be as near a limit as the tensor cores; two
+//   m-tiles halve those reads per query.  At T = 64 the second m-tile's
+//   rows are past T (zeros, not stored), and the time is the launch's.
+//   -Xptxas -v at hd 16 / 32 / 64: 168 / 178-184 / 244 registers, no
+//   spills (2 blocks an SM at hd 64); static shared memory, the two ring
+//   stages: 12 / 20 / 36 KB.
 //
 // fp32 (the training CLI's hd 16 model): CUDA-core FMAs.  On tensor cores
 // fp32 operands would run as TF32 (10-bit mantissas), which breaks the
@@ -262,7 +260,7 @@ int launch_f32_masked(const void* qkv, void* out, int B, int T_, int heads,
 constexpr int kWarps = 4;
 typedef __nv_bfloat16 bf16;
 
-// two stages of K and V tiles; stage 1 holds the Q tile (64 or 128 rows)
+// two stages of K and V tiles; stage 1 holds the Q tile (128 rows)
 // until its fragments are in registers, stage 0 the output on the way out
 template <int HD>
 struct SmemBf16 {
@@ -270,13 +268,15 @@ struct SmemBf16 {
   bf16 kv[2][2][kTk][kLd];                    // [stage][k, v][key][d]
 };
 
-// MT m-tiles of 16 query rows a warp: a block takes 64 MT queries
-template <int HD, bool kMask, int MT>
+// m-tiles of 16 query rows a warp: a block takes 16 * 2 * 4 = 128 queries
+constexpr int kMt = 2;
+
+template <int HD, bool kMask>
 __global__ void __launch_bounds__(32 * kWarps, 1)
 attn_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
                 int T_, int heads, float scale2) {
   constexpr int kLd = SmemBf16<HD>::kLd;
-  constexpr int kRows = 16 * MT * kWarps;     // queries per block
+  constexpr int kRows = 16 * kMt * kWarps;    // queries per block
   constexpr int kChunks = HD / 8;             // 16-byte chunks per row
   constexpr int kD16 = HD / 16;               // k-steps of Q K^T
   constexpr int kN8 = HD / 8;                 // n-tiles of O
@@ -313,19 +313,19 @@ attn_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
   tc::cp_async_commit();
 
   const float sl2 = scale2 * 1.4426950408889634f;   // scale * log2(e)
-  uint32_t qf[MT][kD16][4];
-  float o[MT][kN8][4];
+  uint32_t qf[kMt][kD16][4];
+  float o[kMt][kN8][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
     for (int n = 0; n < kN8; ++n)
 #pragma unroll
       for (int r = 0; r < 4; ++r) o[mt][n][r] = 0.f;
   // rows g and g + 8 of each of the warp's m-tiles (lane = 4 g + t):
   // running max of the raw scores and this lane's part of the running sum
-  float m0[MT], m1[MT], l0[MT], l1[MT];
+  float m0[kMt], m1[kMt], l0[kMt], l1[kMt];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+  for (int mt = 0; mt < kMt; ++mt) {
     m0[mt] = m1[mt] = -INFINITY;
     l0[mt] = l1[mt] = 0.f;
   }
@@ -336,11 +336,11 @@ attn_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
     __syncthreads();              // tile j landed; tile j-1's buffers free
     if (j == 0) {
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+      for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
         for (int kk = 0; kk < kD16; ++kk)
           tc::ldmatrix_x4(qf[mt][kk],
-                          &rows(1)[16 * (MT * warp + mt) + (lane & 15)]
+                          &rows(1)[16 * (kMt * warp + mt) + (lane & 15)]
                                   [16 * kk + (lane >> 4) * 8]);
       __syncthreads();            // the Q tile's stage is free for tile 1
     }
@@ -351,9 +351,9 @@ attn_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
     }
 
     // S = Q K^T: 8 n-tiles of 8 keys, each K fragment used by every m-tile
-    float s[MT][8][4];
+    float s[kMt][8][4];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -367,7 +367,7 @@ attn_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
                                            ((lane >> 4) << 3)]
                                           [16 * kk + ((lane >> 3) & 1) * 8]);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
+        for (int mt = 0; mt < kMt; ++mt) {
           tc::mma_bf16(s[mt][2 * np], qf[mt][kk], kb[0], kb[1]);
           tc::mma_bf16(s[mt][2 * np + 1], qf[mt][kk], kb[2], kb[3]);
         }
@@ -377,7 +377,7 @@ attn_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
     // by one FFMA and exp2
     const int key0 = j * kTk + 2 * (lane & 3);
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
+    for (int mt = 0; mt < kMt; ++mt) {
       float mx0 = m0[mt], mx1 = m1[mt];
 #pragma unroll
       for (int n = 0; n < 8; ++n)
@@ -421,9 +421,9 @@ attn_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
     // each V fragment used by every m-tile
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[MT][4];
+      uint32_t pa[kMt][4];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
+      for (int mt = 0; mt < kMt; ++mt) {
         pa[mt][0] = tc::pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
         pa[mt][1] = tc::pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
         pa[mt][2] = tc::pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
@@ -435,7 +435,7 @@ attn_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
         tc::ldmatrix_x4_trans(vb, &sm.kv[buf][1][16 * kk + (lane & 15)]
                                                [16 * dp + (lane >> 4) * 8]);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
+        for (int mt = 0; mt < kMt; ++mt) {
           tc::mma_bf16(o[mt][2 * dp], pa[mt], vb[0], vb[1]);
           tc::mma_bf16(o[mt][2 * dp + 1], pa[mt], vb[2], vb[3]);
         }
@@ -447,9 +447,9 @@ attn_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
   // rows of stage 0, then 16-byte stores
   __syncthreads();                // every warp is done with the last tile
   const int g = lane >> 2, t2 = 2 * (lane & 3);
-  bf16 (*so)[kLd] = rows(0) + 16 * MT * warp;
+  bf16 (*so)[kLd] = rows(0) + 16 * kMt * warp;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+  for (int mt = 0; mt < kMt; ++mt) {
     float s0 = l0[mt], s1 = l1[mt];
     s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
     s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
@@ -465,50 +465,34 @@ attn_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
     }
   }
   __syncwarp();
-  for (int i = lane; i < 16 * MT * kChunks; i += 32) {
+  for (int i = lane; i < 16 * kMt * kChunks; i += 32) {
     const int r = i / kChunks, c = (i % kChunks) * 8;
-    const int row = q0 + 16 * MT * warp + r;
+    const int row = q0 + 16 * kMt * warp + r;
     if (kMask && row >= T_) continue;
     *reinterpret_cast<uint4*>(out + ((int64_t)b * T_ + row) * C + h * HD + c) =
         *reinterpret_cast<const uint4*>(&so[r][c]);
   }
 }
 
-template <int HD, int MT>
+template <int HD>
 int launch_bf16(const void* qkv, void* out, int B, int T_, int heads,
                 float scale2, cudaStream_t stream) {
-  constexpr int kRows = 16 * MT * kWarps;
+  constexpr int kRows = 16 * kMt * kWarps;
   dim3 grid((T_ + kRows - 1) / kRows, heads, B);
   if (T_ % kRows)
-    attn_mma_kernel<HD, true, MT><<<grid, 32 * kWarps, 0, stream>>>(
+    attn_mma_kernel<HD, true><<<grid, 32 * kWarps, 0, stream>>>(
         (const bf16*)qkv, (bf16*)out, T_, heads, scale2);
   else
-    attn_mma_kernel<HD, false, MT><<<grid, 32 * kWarps, 0, stream>>>(
+    attn_mma_kernel<HD, false><<<grid, 32 * kWarps, 0, stream>>>(
         (const bf16*)qkv, (bf16*)out, T_, heads, scale2);
   return (int)cudaGetLastError();
-}
-
-// the card's SM count, read once
-int sm_count() {
-  static int n = 0;
-  if (!n) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
 }
 
 template <int HD>
 int launch(const void* qkv, void* out, int B, int T_, int heads, int is_bf16,
            float scale2, cudaStream_t stream) {
-  // 2 m-tiles a warp (128-query blocks) read each K and V fragment for
-  // twice the rows, where the grid of 128-query blocks still covers the
-  // SMs; otherwise 64-query blocks keep more blocks in flight
   if (is_bf16)
-    return (int64_t)(T_ + 127) / 128 * heads * B >= sm_count()
-               ? launch_bf16<HD, 2>(qkv, out, B, T_, heads, scale2, stream)
-               : launch_bf16<HD, 1>(qkv, out, B, T_, heads, scale2, stream);
+    return launch_bf16<HD>(qkv, out, B, T_, heads, scale2, stream);
   return T_ % kTq ? launch_f32_masked<HD, true>(qkv, out, B, T_, heads, scale2, stream)
                   : launch_f32_masked<HD, false>(qkv, out, B, T_, heads, scale2, stream);
 }

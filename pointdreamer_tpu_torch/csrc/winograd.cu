@@ -4,8 +4,7 @@
 // Replaces the Pallas kernel pointdreamer_tpu/kernels/winograd_pallas.py::
 // winograd_conv3x3 (_wino_kernel).  x [B,H,W,Cin] bf16 (NHWC), the
 // pre-transformed weights U [16,Cin,Cout] bf16 (U[4u+v] = (G w G^T)[u,v],
-// made by wino_weights_kernel below in one pass over w, bit-equal to the
-// JAX package's transform_weights), out [B,H,W,Cout] bf16.
+// made by the wrapper as transform_weights does), out [B,H,W,Cout] bf16.
 // Each 2x2 output tile takes the 4x4 input tile d around it (zeros past
 // the border: the padding is done here, with no padded copy of x),
 // V = B^T d B in bf16 with the Pallas kernel's add pattern and rounding,
@@ -323,55 +322,9 @@ wino_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ U,
     }
 }
 
-// G a over three values: the rows [1,0,0], [.5,.5,.5], [.5,-.5,.5], [0,0,1]
-// of the weight transform, halves first, summed in index order (the _rn
-// intrinsics keep nvcc from contracting them into FMAs)
-__device__ __forceinline__ void g_rows(float a0, float a1, float a2,
-                                       float (&r)[4]) {
-  const float h0 = __fmul_rn(a0, 0.5f), h1 = __fmul_rn(a1, 0.5f),
-              h2 = __fmul_rn(a2, 0.5f);
-  r[0] = a0;
-  r[1] = __fadd_rn(__fadd_rn(h0, h1), h2);
-  r[2] = __fadd_rn(__fsub_rn(h0, h1), h2);
-  r[3] = a2;
-}
-
-// U = G w G^T for one (cin, cout) a thread, as the wrapper's plain
-// transform_weights computes it: fp32, G over the kernel's rows, then over
-// its columns, one rounding to bf16.  n = Cin * Cout; w [9][n], U [16][n].
-__global__ void wino_weights_kernel(const float* __restrict__ w,
-                                    bf16* __restrict__ U, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float t[3][4];                    // t[j][u] = (G w)[u, j]
-#pragma unroll
-  for (int j = 0; j < 3; ++j)
-    g_rows(w[j * n + i], w[(3 + j) * n + i], w[(6 + j) * n + i], t[j]);
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    float r[4];
-    g_rows(t[0][u], t[1][u], t[2][u], r);
-#pragma unroll
-    for (int v = 0; v < 4; ++v)
-      U[(4 * u + v) * n + i] = __float2bfloat16_rn(r[v]);
-  }
-}
-
 }  // namespace
 
 extern "C" {
-
-// w [3,3,Cin,Cout] fp32 -> U [16,Cin,Cout] bf16, both contiguous.  Returns
-// a cudaError_t.
-int pd_winograd_transform_weights(const void* w, void* U, int Cin, int Cout,
-                                  void* stream) {
-  const int64_t n = (int64_t)Cin * Cout;
-  if (Cin < 1 || Cout < 1 || (n + 255) / 256 > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
-  wino_weights_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
-                        (cudaStream_t)stream>>>((const float*)w, (bf16*)U, n);
-  return (int)cudaGetLastError();
-}
 
 // x [B,H,W,Cin] bf16, U [16,Cin,Cout] bf16, out [B,H,W,Cout] bf16, all
 // contiguous and 16-byte aligned.  H, W even, Cin % 16 == 0,

@@ -62,7 +62,6 @@ _SIGNATURES = {
     "pd_groupnorm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                      ctypes.c_float, _P],
     "pd_winograd_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "pd_winograd_transform_weights": [_P, _P, _I, _I, _P],
 }
 
 

@@ -3,8 +3,8 @@
 `winograd_conv3x3(x, w)`: x [B, H, W, Cin] (NHWC), w [3, 3, Cin, Cout]
 (HWIO) -> [B, H, W, Cout] in x's dtype; 'same' padding, stride 1 — the
 contract of kernels/winograd_pallas.py::winograd_conv3x3.  The weights go
-through `transform_weights` first (U = G w G^T in fp32, stored bf16; on
-the card one pass of a small kernel beside K6's).
+through `transform_weights` first (U = G w G^T in fp32, stored bf16, by
+whole-tensor ops on either device).
 
 A CUDA tensor (bf16, H and W even, Cin % 16 == 0, Cout % 32 == 0)
 launches csrc/winograd.cu; a CPU tensor takes the plain version: V =
@@ -32,35 +32,16 @@ def _g_rows(a: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.stack([a0, (h0 + h1) + h2, (h0 - h1) + h2, a2], dim)
 
 
-def _check_w(w: torch.Tensor) -> None:
+def transform_weights(w: torch.Tensor) -> torch.Tensor:
+    """[3, 3, Cin, Cout] -> U [16, Cin, Cout] with U[4u+v] = (G w G^T)[u,v],
+    computed in fp32 (G over the rows first, then the columns) and stored
+    bf16.  Whole-tensor ops on w's device, the same on the CPU and the
+    card."""
     if w.dim() != 4 or tuple(w.shape[:2]) != (3, 3):
         raise ValueError(f"w: expected [3, 3, Cin, Cout], got "
                          f"{tuple(w.shape)}")
-
-
-def transform_weights_plain(w: torch.Tensor) -> torch.Tensor:
-    """[3, 3, Cin, Cout] -> U [16, Cin, Cout] with U[4u+v] = (G w G^T)[u,v],
-    computed in fp32 (G over the rows first, then the columns) and stored
-    bf16."""
-    _check_w(w)
     u = _g_rows(_g_rows(w.float(), 0), 1)              # [4, 4, Cin, Cout]
     return u.reshape(16, *w.shape[2:]).to(torch.bfloat16)
-
-
-def transform_weights(w: torch.Tensor) -> torch.Tensor:
-    """U of `transform_weights_plain`: CPU tensors take the plain version,
-    CUDA tensors one pass of csrc/winograd.cu's weight kernel (the same
-    fp32 operations in the same order, so U is bit-equal)."""
-    _check_w(w)
-    if w.device.type == "cpu":
-        return transform_weights_plain(w)
-    w = w.float().contiguous()
-    require_cuda_tensor(w, "w", torch.float32, 4)
-    u = torch.empty((16, *w.shape[2:]), dtype=torch.bfloat16, device=w.device)
-    check(lib().pd_winograd_transform_weights(
-        w.data_ptr(), u.data_ptr(), w.shape[2], w.shape[3],
-        stream_ptr(w.device)), "winograd_transform_weights")
-    return u
 
 
 def _check_shapes(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -114,7 +95,7 @@ def _plain_on_u(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 def winograd_conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check_shapes(x, w)
-    return _plain_on_u(x, transform_weights_plain(w))
+    return _plain_on_u(x, transform_weights(w))
 
 
 def winograd_conv3x3_pretransformed(x: torch.Tensor,
@@ -144,12 +125,12 @@ def winograd_conv3x3_pretransformed(x: torch.Tensor,
 
 
 def winograd_conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """K6 wrapper: CPU tensors take the plain version, CUDA tensors launch
-    the weight kernel and K6."""
+    """K6 wrapper: CPU tensors take the plain version, CUDA tensors
+    transform w and launch K6."""
     if x.device.type == "cpu":
         return winograd_conv3x3_plain(x, w)
     x = x.contiguous()
     require_cuda_tensor(x, "x", torch.bfloat16, 4)
     _check_shapes(x, w)
-    return winograd_conv3x3_pretransformed(x,
-                                           transform_weights(w.to(x.device)))
+    return winograd_conv3x3_pretransformed(
+        x, transform_weights(w.to(x.device)).contiguous())

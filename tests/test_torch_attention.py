@@ -4,8 +4,9 @@ packed legacy qkv layout.  Tolerances: fp32 within 1e-5 (same math, other
 summation order); bf16 within 2e-2 (both cast the softmax weights to bf16
 before the value product; results are bf16, ulp 2^-8 relative).  A model
 of the card's bf16 tensor-core kernel (csrc/attention.cu), which rounds
-the unnormalised weights instead, is held to the same 2e-2: the gate
-chip_smoke.py holds the kernel to against the plain version."""
+the unnormalised weights instead, is held to the same 2e-2 and to 2e-2 of
+max |out|: the gates chip_smoke.py holds the kernel to against the plain
+version."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -86,16 +87,17 @@ def test_attention_plain_bf16_ragged_matches_pallas(hd, t):
 def test_tensor_core_rounding_matches_pallas(hd, t):
     # what the card's bf16 kernel computes (flash order, unnormalised
     # weights rounded to bf16) against the Pallas kernel, which rounds the
-    # normalised weights, within chip_smoke.py's 2e-2 gate
+    # normalised weights, within chip_smoke.py's gates: 2e-2, and 2e-2 of
+    # max |out|
     heads = 2
     rng = np.random.default_rng(100 * hd + t)
     qkv = rng.standard_normal((B, t, 3 * heads * hd)).astype(np.float32)
-    want = fused_attention_qkv(jnp.asarray(qkv, jnp.bfloat16), heads, hd,
-                               interpret=True)
-    got = _tensor_core_model(qkv, heads)
-    np.testing.assert_allclose(got.float().numpy(),
-                               np.asarray(want.astype(jnp.float32)),
-                               atol=2e-2, rtol=0)
+    want = np.asarray(fused_attention_qkv(
+        jnp.asarray(qkv, jnp.bfloat16), heads, hd,
+        interpret=True).astype(jnp.float32))
+    got = _tensor_core_model(qkv, heads).float().numpy()
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=0)
+    assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
 
 
 def test_attention_wrapper_on_cpu_is_the_plain_version():

@@ -102,15 +102,16 @@ def test_pretransformed_on_cpu_is_the_plain_version():
 
 
 def test_card_entries_refuse_other_devices(monkeypatch):
-    # the weight transform and the pretransformed entry take the plain
-    # version only on the CPU; any other device is refused before a launch
+    # the function and the pretransformed entry take the plain version
+    # only on the CPU; any other device is refused before a launch
     def no_library():
         raise AssertionError("a non-CUDA tensor reached the CUDA library")
 
     monkeypatch.setattr(twino, "lib", no_library)
     w = torch.zeros((3, 3, 16, 32), device="meta")
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
-        transform_weights(w)
+        winograd_conv3x3(
+            torch.zeros((1, 8, 8, 16), dtype=torch.bfloat16, device="meta"), w)
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         winograd_conv3x3_pretransformed(
             torch.zeros((1, 8, 8, 16), dtype=torch.bfloat16, device="meta"),
