@@ -18,7 +18,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                 cached mesh, as build/smoke/in_ply/cube.ply.
   3. kernels  : every kernel of the main paths against its plain torch
                 version on the card, at the main paths' shapes: K1 raster
-                (8 views x 512^2, and the 1024^2 atlas bake), K4 legacy
+                (8 views x 512^2, the optimizer's 8 x 256^2 and the
+                1024^2 atlas bake, each timed beside its bound), K4 legacy
                 raster (8 x 512^2 with and without back-face culling, and
                 the optimizer's 8 x 256^2), K2 attention (bf16, T/heads =
                 1024/8, 256/16, 64/16, batch 8; then the training shapes:
@@ -33,8 +34,9 @@ Phases (each prints its own lines; any failure exits non-zero):
                 CUDA-event medians of the kernel, the plain version and
                 (where one exists) a single PyTorch library call of the
                 same function, beside the bound the card's peak rates
-                give; for K2 also the device time of each launch and of
-                SDPA's from CUDA-graph replays (no host time).
+                give; for K2, K3 and K5 also the device time of each
+                launch and of the library call's from CUDA-graph replays
+                (no host time).
   4. e2e      : Pipeline.create(configs/default.yaml, device="cuda") with a
                 seeded random 552.8M-parameter bf16 UNet; one warm-up and
                 one timed recon_one_textured_mesh (fresh output dirs, so
@@ -322,20 +324,25 @@ def bf16_ulp(v):
 
 def check_groupnorm(dev, gen) -> dict:
     """K5 against its plain version at the 552.8M UNet's GroupNorm shapes
-    (bf16 in and out, B = 8): within one bf16 ulp of the output.  Returns
-    the kernel table row (times and bounds summed over the shapes)."""
+    (bf16 in and out, B = 8): within one bf16 ulp of the output.  Prints,
+    for each shape, the wrapper's ms and its device ms (CUDA-graph
+    replays), F.group_norm's two, and the bound.  Returns the kernel
+    table row (times and bounds summed over the shapes)."""
     import torch
     import torch.nn.functional as F_
 
     from pointdreamer_tpu_torch.kernels import FP32_OPS_PER_S
     from pointdreamer_tpu_torch.kernels.groupnorm import (
-        fused_groupnorm, fused_groupnorm_plain)
+        _resident, fused_groupnorm, fused_groupnorm_plain, launch_plan)
 
+    dev = torch.device("cuda", torch.cuda.current_device())
     row = dict(name="groupnorm", route="cuda",
                source="pointdreamer_tpu_torch/csrc/groupnorm.cu",
                replaces="pointdreamer_tpu/kernels/groupnorm_pallas.py:113",
                max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                library_ms=0.0)
+    print(f"[K5 groupnorm] resident clusters (blocks, clusters): "
+          f"{_resident(dev, True, True)}")
     by = ops = 0.0
     for (B, S, C), with_ss, silu, what in (
             ((8, 65536, 256), True, True, "256^2 ResBlock out_norm"),
@@ -355,23 +362,31 @@ def check_groupnorm(dev, gen) -> dict:
         ulps = float((err / bf16_ulp(want)).max())
         if not ulps <= 1.0:
             fail(f"K5 {(B, S, C)}: {ulps} bf16 ulps from its plain version")
-        ms = cuda_ms(lambda: fused_groupnorm(x, g, b, ss, silu=silu))
+        # 30 calls for the wrapper times: at the small shapes they are the
+        # host's, which varies from call to call
+        ms = cuda_ms(lambda: fused_groupnorm(x, g, b, ss, silu=silu),
+                     reps=30)
+        gms = graph_ms(lambda: fused_groupnorm(x, g, b, ss, silu=silu))
         pms = cuda_ms(lambda: fused_groupnorm_plain(x, g, b, ss, silu=silu),
                       reps=3, warmup=1)
         xc = x.transpose(1, 2).contiguous()
         gb, bb = g.bfloat16(), b.bfloat16()
-        lms = cuda_ms(lambda: F_.group_norm(xc, 32, gb, bb, 1e-5))
+        lms = cuda_ms(lambda: F_.group_norm(xc, 32, gb, bb, 1e-5), reps=30)
+        glms = graph_ms(lambda: F_.group_norm(xc, 32, gb, bb, 1e-5))
         # one read of x and one write of y (bf16), gamma/beta/ss once;
         # per element: sum, square, sum of squares, scale, bias, and 3
         # for the scale-shift, 4 for the SiLU
         n = B * S * C
-        b_x = n * 4 + C * 8 + (B * 2 * C * 2 if with_ss else 0)
+        b_x = n * 4 + C * 8 + (B * 2 * C * 4 if with_ss else 0)
         o_x = n * (5 + 3 * with_ss + 4 * silu)
         b_ms, b_by = bound(b_x, o_x, FP32_OPS_PER_S)
+        plan = launch_plan(B, S, C, 2, 2, _resident(dev, True, True))
         print(f"[K5 groupnorm] {what} {[B, S, C]} ss={with_ss} silu={silu} "
-              f"max_abs_err={float(err.max()):.3g} ({ulps:.3g} bf16 ulp) "
-              f"ms={ms:.4f} plain_ms={pms:.4f} group_norm_ms={lms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by})")
+              f"{plan} max_abs_err={float(err.max()):.3g} ({ulps:.3g} bf16 ulp) "
+              f"ms={ms:.4f} device_ms={gms:.4f} plain_ms={pms:.4f} "
+              f"group_norm_ms={lms:.4f} group_norm_device_ms={glms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}; device time "
+              f"{b_ms / gms:.0%} of it)")
         row["max_abs_err"] = max(row["max_abs_err"], float(err.max()))
         row["ms"] += ms
         row["plain_ms"] += pms
@@ -385,6 +400,47 @@ def check_groupnorm(dev, gen) -> dict:
           f"group_norm_ms={row['library_ms']:.4f} "
           f"bound_ms={row['bound_ms']:.4f}")
     return row
+
+
+def check_segsum(popt, contrib, cum_bounds, base, R: int, what: str) -> dict:
+    """K3 against its plain version (within 1e-5 of the largest output) on
+    the optimizer's tables; prints the wrapper's and the device ms (CUDA
+    graph) of K3 and of index_add_ beside the bound.  Returns the table
+    row."""
+    import torch
+
+    from pointdreamer_tpu_torch.kernels import FP32_OPS_PER_S
+
+    K = contrib.shape[1]
+    got = popt.segment_sum(contrib, cum_bounds)
+    want = popt.segment_sum_plain(contrib, cum_bounds)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not err <= 1e-5 * scale:
+        fail(f"K3 ({what}) relative error {err / scale}")
+    ms = cuda_ms(lambda: popt.segment_sum(contrib, cum_bounds))
+    gms = graph_ms(lambda: popt.segment_sum(contrib, cum_bounds))
+    plain = cuda_ms(lambda: popt.segment_sum_plain(contrib, cum_bounds))
+
+    def library():
+        return torch.zeros((12, R * R), device=contrib.device).index_add_(
+            1, base, contrib)
+
+    lib_ms = cuda_ms(library)
+    lib_gms = graph_ms(library)
+    b_ms, b_by = bound(12 * K * 4 + R * R * 4 + 12 * R * R * 4, 12.0 * K,
+                       FP32_OPS_PER_S)
+    print(f"[K3 segment_sum] {what}: K={K} R={R} max_abs_err={err:.3g} "
+          f"(rel {err / scale:.3g}) ms={ms:.4f} device_ms={gms:.4f} "
+          f"plain_ms={plain:.4f} index_add_ms={lib_ms:.4f} "
+          f"index_add_device_ms={lib_gms:.4f} bound_ms={b_ms:.4f} ({b_by}; "
+          f"device time {b_ms / gms:.0%} of it)")
+    return dict(name="segment_sum", route="cuda",
+                source="pointdreamer_tpu_torch/csrc/segsum.cu",
+                replaces="pointdreamer_tpu/kernels/segsum_pallas.py:67",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
 
 
 def check_winograd(dev, gen) -> dict:
@@ -844,28 +900,10 @@ def main() -> int:
     K = base.shape[0]
     g_pix = torch.randn((K, 3), generator=gen, device=dev) * msk_s / denom
     contrib = (w4.T[:, None, :] * g_pix.T[None]).reshape(12, K).contiguous()
-    got3 = popt.segment_sum(contrib, cum_bounds)
-    want3 = popt.segment_sum_plain(contrib, cum_bounds)
-    torch.cuda.synchronize()
-    k3_err = float((got3 - want3).abs().max())
-    scale3 = float(want3.abs().max())
-    if not (k3_err <= 1e-5 * scale3):
-        fail(f"K3 relative error {k3_err / scale3}")
-    k3_ms = cuda_ms(lambda: popt.segment_sum(contrib, cum_bounds))
-    k3_plain = cuda_ms(lambda: popt.segment_sum_plain(contrib, cum_bounds))
-    k3_lib = cuda_ms(lambda: torch.zeros((12, R * R), device=dev)
-                     .index_add_(1, base, contrib))
-    k3_bound, k3_by = bound(12 * K * 4 + R * R * 4 + 12 * R * R * 4,
-                            12.0 * K, FP32_OPS_PER_S)
-    print(f"[K3 segment_sum] K={K} R={R} active={int(fg.sum())} "
-          f"max_abs_err={k3_err:.3g} (rel {k3_err / scale3:.3g}) "
-          f"ms={k3_ms:.4f} plain_ms={k3_plain:.4f} "
-          f"index_add_ms={k3_lib:.4f} bound_ms={k3_bound:.4f} ({k3_by})")
-    table.append(dict(name="segment_sum", route="cuda",
-                      source="pointdreamer_tpu_torch/csrc/segsum.cu",
-                      replaces="pointdreamer_tpu/kernels/segsum_pallas.py:67",
-                      max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain,
-                      bound_ms=k3_bound, bound_by=k3_by, library_ms=k3_lib))
+    print(f"[K3 segment_sum] the optimizer's tables: {int(fg.sum())} "
+          f"active pixels")
+    table.append(check_segsum(popt, contrib, cum_bounds, base, R,
+                              "optimize tables"))
 
     # K4 at project's 8 x 512^2, with and without back-face culling (the
     # timed row culls, as project does on the port's own reconstruction),
@@ -890,11 +928,32 @@ def main() -> int:
     # operations: 16 per (pixel, face) test of each face's own xy box
     k4_bound, k4_by = bound(tri_k4.numel() * 4 + V * res * res * 20,
                             16.0 * tests4, FP32_OPS_PER_S)
+    cof_o, bbox_o = orast.prepare_views(ndc_o, depth_o, faces_t, rr, True)
+    tests_o = pixel_box_tests(ndc_o, faces_t, bbox_o, rr)
+    k4_opt_bound, k4_opt_by = bound(tri_o.numel() * 4 + V * rr * rr * 20,
+                                    16.0 * tests_o, FP32_OPS_PER_S)
     print(f"[K4 raster_legacy] V={V} res={res} F={F} culled "
           f"pixel_box_tests={tests4} max_abs_err={k4_err:.3g} "
           f"ms={k4_ms:.4f} plain_ms={k4_plain:.3f} "
           f"bound_ms={k4_bound:.4f} ({k4_by}); optimize {rr}^2 "
-          f"ms={k4_opt_ms:.4f}")
+          f"pixel_box_tests={tests_o} ms={k4_opt_ms:.4f} "
+          f"bound_ms={k4_opt_bound:.4f} ({k4_opt_by})")
+    # K1 at its other launch shapes: the optimizer's view maps (8 x 256^2,
+    # culled; K1 there when the switch is off) and the atlas bake (1 x
+    # 1024^2, every run)
+    k1_err = max(k1_err, check_raster(orast, cof_o, bbox_o, rr, "optimize"))
+    for what, (c_, b_, nd_, fa_, r_) in (
+            ("optimize", (cof_o, bbox_o, ndc_o, faces_t, rr)),
+            ("bake", (cof_b, bbox_b, (uv_t * 2.0 - 1.0)[None],
+                      torch.as_tensor(fuv, device=dev), R))):
+        t_ = pixel_box_tests(nd_, fa_, b_, r_)
+        ms_ = cuda_ms(lambda: orast.rasterize_coefficients(c_, b_, r_))
+        b_ms, b_by = bound(c_.shape[0] * c_.shape[1] * 16 * 4
+                           + c_.shape[0] * r_ * r_ * 20, 16.0 * t_,
+                           FP32_OPS_PER_S)
+        print(f"[K1 raster_binned] {what}: V={c_.shape[0]} res={r_} "
+              f"F={c_.shape[1]} pixel_box_tests={t_} ms={ms_:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by})")
     table.append(dict(name="raster_legacy", route="cuda",
                       source="pointdreamer_tpu_torch/csrc/raster_legacy.cu",
                       replaces="pointdreamer_tpu/kernels/raster_pallas.py:310",

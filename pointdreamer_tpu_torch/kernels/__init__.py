@@ -58,9 +58,11 @@ _SIGNATURES = {
     "pd_raster_tiles": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "pd_raster_legacy": [_P, _I, _I, _I, _P, _P, _P, _P],
     "pd_attention_qkv": [_P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
-    "pd_segment_sum": [_P, _P, ctypes.c_int64, _I, _P, _P],
-    "pd_groupnorm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                     ctypes.c_float, _P],
+    "pd_segment_sum": [_P, _P, ctypes.c_int64, _I, _I, _I, _P, _P],
+    "pd_groupnorm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _I, _I, ctypes.c_float, _P],
+    "pd_groupnorm_limits": [_P],
+    "pd_groupnorm_max_clusters": [_I, _I, _I],
     "pd_winograd_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
@@ -185,7 +187,14 @@ def lib() -> ctypes.CDLL:
     return _LIB
 
 
+# PyTorch's own raw-stream query (what its generated kernel launchers
+# call): an int, without building a Stream object for every launch
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_ptr(device: torch.device) -> int:
+    if _RAW_STREAM is not None and device.index is not None:
+        return _RAW_STREAM(device.index)
     return torch.cuda.current_stream(device).cuda_stream
 
 

@@ -6,14 +6,16 @@ atlas-rendered views and the inpainted images.  Geometry is fixed, so the
 per-view pixel -> uv map is rasterized once; each iteration is a sorted
 gather forward and a segment-sum backward.  The segment sum runs on K3
 (csrc/segsum.cu, replacing kernels/segsum_pallas.py::segment_sum_expand)
-for CUDA tensors and on its plain torch version for CPU tensors.  Adam and
-the step schedule are written out by hand in the update order of optax's
-`adam(exponential_decay(lr, 15, 0.5, staircase=True))`.
+for CUDA tensors and on its plain torch version for CPU tensors;
+`segment_sum_blocked` models the kernel's summation order on the CPU.
+Adam and the step schedule are written out by hand in the update order of
+optax's `adam(exponential_decay(lr, 15, 0.5, staircase=True))`.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -85,6 +87,48 @@ def segment_sum_plain(contrib: torch.Tensor, cum_bounds: torch.Tensor
     return (hi - lo).float()
 
 
+# K3's launch (csrc/segsum.cu): texels a block, one a thread, and the
+# contributions a channel row staged in shared memory at a time (a
+# multiple of 4; 4 * (12 * chunk + texels + 1) bytes within 48 KB)
+SEGSUM_TEXELS = 512
+SEGSUM_CHUNK = 960
+
+
+def segment_sum_windows(cum_bounds, texels: int = SEGSUM_TEXELS,
+                        chunk: int = SEGSUM_CHUNK, align: int = 4):
+    """K3's plan over the data: for each block of `texels` texels
+    [t0, t1), the staged windows [a, e) of its run [cum[t0-1],
+    cum[t1-1]): from the run's start rounded down to `align` (4 on the
+    kernel's 16-byte path, 1 on its 4-byte path), `chunk` at a time.
+    Yields (t0, t1, a, e); a block with an empty run yields no window."""
+    cb = [int(v) for v in cum_bounds]
+    n_tex = len(cb)
+    for t0 in range(0, n_tex, texels):
+        t1 = min(n_tex, t0 + texels)
+        lo, hi = (cb[t0 - 1] if t0 else 0), cb[t1 - 1]
+        for a in range(lo - lo % align, hi, chunk):
+            yield t0, t1, a, min(a + chunk, hi)
+
+
+def segment_sum_blocked(contrib: torch.Tensor, cum_bounds: torch.Tensor,
+                        texels: int = SEGSUM_TEXELS,
+                        chunk: int = SEGSUM_CHUNK, align: int = 4
+                        ) -> torch.Tensor:
+    """CPU model of K3's arithmetic: through the windows of
+    `segment_sum_windows`, each texel adds the part of its run that a
+    window holds, one fp32 add at a time in run order, its sums carried
+    from window to window."""
+    c = contrib.float().numpy()
+    cb = cum_bounds.long().numpy()
+    out = np.zeros((c.shape[0], len(cb)), np.float32)
+    for t0, t1, a, e in segment_sum_windows(cb, texels, chunk, align):
+        for t in range(t0, t1):
+            lo, hi = max(cb[t - 1] if t else 0, a), min(cb[t], e)
+            for k in range(lo, hi):
+                out[:, t] += c[:, k]
+    return torch.from_numpy(out)
+
+
 def _segment_sum_cuda(contrib: torch.Tensor, cum_bounds: torch.Tensor
                       ) -> torch.Tensor:
     kernels.require_cuda_tensor(contrib, "contrib", torch.float32, 2)
@@ -96,7 +140,8 @@ def _segment_sum_cuda(contrib: torch.Tensor, cum_bounds: torch.Tensor
                       device=contrib.device)
     kernels.check(kernels.lib().pd_segment_sum(
         contrib.data_ptr(), cum_bounds.data_ptr(), contrib.shape[1], n_tex,
-        out.data_ptr(), kernels.stream_ptr(contrib.device)), "segment_sum")
+        SEGSUM_TEXELS, SEGSUM_CHUNK, out.data_ptr(),
+        kernels.stream_ptr(contrib.device)), "segment_sum")
     kernels.LAUNCHES["segment_sum"] += 1
     return out
 

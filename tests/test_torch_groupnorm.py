@@ -89,3 +89,84 @@ def test_groupnorm_takes_any_rows_and_rejects_bad_channels():
     torch.testing.assert_close(y, want.transpose(1, 2), atol=1e-5, rtol=0)
     with pytest.raises(ValueError, match="C % 32"):
         fused_groupnorm_plain(x[..., :48], g[:48], b[:48])
+
+
+# K5's launch plan (kernels/groupnorm.py::launch_plan): the card's clusters
+# cover every row and channel of x exactly once.  RESIDENT is what an
+# H100 (132 SMs, one block an SM) holds of clusters of 8, 4 and 2 blocks
+# (cudaOccupancyMaxActiveClusters on the card).
+RESIDENT = ((8, 15), (4, 30), (2, 66))
+UNET_SHAPES = [(8, 65536, 256), (8, 65536, 512), (8, 256, 1024),
+               (8, 64, 2048)]
+
+
+@pytest.mark.parametrize("B,S,C", UNET_SHAPES + [
+    (1, 1, 64), (2, 33, 96), (3, 4097, 256), (1, 4097, 128), (8, 1, 2048)])
+@pytest.mark.parametrize("x_bytes,out_bytes", [(2, 2), (4, 4), (2, 4)])
+def test_launch_plan_covers_every_row_and_channel_once(B, S, C, x_bytes,
+                                                       out_bytes):
+    from pointdreamer_tpu_torch.kernels import groupnorm as kg
+
+    p = kg.launch_plan(B, S, C, x_bytes, out_bytes, RESIDENT)
+    gs = C // kg.GROUPS
+    assert p.n_ranges * p.crange == C
+    assert p.crange % gs == 0 and p.crange % 8 == 0
+    assert p.crange <= kg.MAX_RANGE
+    assert p.crange * min(x_bytes, out_bytes) >= kg.SECTOR
+    assert 0 < p.keep_rows <= p.rows
+    assert 2 * -(-p.keep_rows // 2) * p.crange * x_bytes <= kg.KEEP_BYTES
+    assert p.clusters <= dict(RESIDENT)[p.cluster]
+    # persistent clusters walk the items y, y + P, ...: each item once
+    items = np.zeros(B * p.n_ranges, np.int64)
+    for y in range(p.clusters):
+        items[y::p.clusters] += 1
+    assert (items == 1).all()
+    # an item: its blocks' row slices, and the ranges of a batch element.
+    # Both exact covers, so their product is.
+    rows = np.zeros(S, np.int64)
+    for rank in range(p.cluster):
+        rows[rank * p.rows:min(S, (rank + 1) * p.rows)] += 1
+    chans = np.zeros(C, np.int64)
+    for cr in range(p.n_ranges):
+        chans[cr * p.crange:(cr + 1) * p.crange] += 1
+    assert (rows == 1).all() and (chans == 1).all()
+
+
+@pytest.mark.parametrize("n_rows,keep_rows", [
+    (1, 1), (5, 5), (8, 2), (4097, 4097), (513, 6), (32768, 768),
+    (16384, 768), (7, 3), (0, 4)])
+def test_stream_chunks_cover_the_slice_once(n_rows, keep_rows):
+    # a block's slice (the last block's may be short, or empty) streams
+    # through two slots of ceil(keep_rows / 2) rows: every row once, no
+    # chunk larger than a slot, consecutive chunks in different slots, and
+    # the kept rows last, in the two slots
+    from pointdreamer_tpu_torch.kernels import groupnorm as kg
+
+    ch = (keep_rows + 1) // 2
+    chunks = kg.stream_chunks(n_rows, keep_rows)
+    seen = np.zeros(n_rows, np.int64)
+    for first, n, _ in chunks:
+        assert 0 <= n <= ch
+        seen[first:first + n] += 1
+    assert (seen == 1).all()
+    slots = [slot for _, _, slot in chunks]
+    assert all(a != b for a, b in zip(slots, slots[1:]))
+    kept = min(keep_rows, n_rows)
+    assert sum(n for _, n, _ in chunks[-2:]) == kept
+
+
+def test_launch_plan_at_the_unet_shapes():
+    # the 16^2 and 8^2 shapes keep every row of a slice (x crosses HBM
+    # once) on clusters of 2 across 128 SMs; the 256^2 shapes, whose batch
+    # elements exceed the on-chip memory, run every item in one round on
+    # ranges of 256 bytes a row
+    from pointdreamer_tpu_torch.kernels import groupnorm as kg
+
+    for B, S, C in UNET_SHAPES:
+        p = kg.launch_plan(B, S, C, 2, 2, RESIDENT)
+        assert B * p.n_ranges <= dict(RESIDENT)[p.cluster]
+        if S <= 256:
+            assert p.keep_rows == p.rows
+            assert (p.cluster, p.clusters) == (2, 64)
+        else:
+            assert p.keep_rows < p.rows and p.crange * 2 == kg.WIDE

@@ -52,6 +52,85 @@ def test_segment_sum_matches_pallas_kernel():
                                           tcb).numpy())
 
 
+def _long_run_cum(rng, n_tex, K, hot, hot_count):
+    # sorted bases with one texel holding `hot_count` contributions
+    base = np.sort(np.concatenate([
+        rng.integers(0, n_tex, K - hot_count), np.full(hot_count, hot)]))
+    return torch.as_tensor(np.cumsum(np.bincount(base, minlength=n_tex))
+                           .astype(np.int32))
+
+
+@pytest.mark.parametrize("n_tex,K,texels,chunk,align", [
+    (1024, 3000, 512, 960, 4),      # the kernel's plan, 16-byte copies
+    (1024, 2999, 512, 960, 1),      # 4-byte copies (K % 4 != 0)
+    (1000, 3000, 64, 40, 4),        # ragged last block, runs split
+    (4096, 5000, 128, 16, 4),       # a 2,000-long run over many windows
+])
+def test_segment_sum_windows_cover_each_contribution_once(n_tex, K, texels,
+                                                          chunk, align):
+    rng = np.random.default_rng(4)
+    cb = _long_run_cum(rng, n_tex, K, hot=n_tex // 3, hot_count=min(
+        2000, K // 2))
+    seen = np.zeros(K, np.int64)
+    cbn = cb.numpy()
+    blocks = set()
+    for t0, t1, a, e in to.segment_sum_windows(cb, texels, chunk, align):
+        assert t1 - t0 <= texels and t0 % texels == 0
+        assert a % align == 0 and 0 < e - a <= chunk
+        blocks.add(t0)
+        for t in range(t0, t1):
+            lo = max(cbn[t - 1] if t else 0, a)
+            seen[lo:max(lo, min(cbn[t], e))] += 1
+    assert (seen == 1).all()
+    # the hot texel's run spans more than one window
+    hot = n_tex // 3
+    n_win = sum(1 for t0, t1, a, e in to.segment_sum_windows(
+        cb, texels, chunk, align) if t0 <= hot < t1)
+    assert n_win >= 2 or chunk >= K
+
+
+@pytest.mark.parametrize("texels,chunk,align", [(512, 960, 4), (64, 40, 1),
+                                                (32, 16, 4)])
+def test_segment_sum_blocked_model_matches_plain_and_pallas(texels, chunk,
+                                                            align):
+    # K3's summation order (fp32, run order, sums carried across windows)
+    # on the optimizer's real tables, against the float64 plain version
+    # and the Pallas kernel in interpret mode: within 1e-5 of the largest
+    # output, the chip's gate (and 1e-5 absolute + relative for Pallas,
+    # as above)
+    rng = np.random.default_rng(5)
+    R, K = 32, 3000
+    _, (jb, _, _, jcb), (_, _, _, tcb) = _tables(rng, R, K)
+    contrib = rng.standard_normal((12, K)).astype(np.float32)
+    got = to.segment_sum_blocked(torch.as_tensor(contrib), tcb, texels,
+                                 chunk, align).numpy()
+    plain = to.segment_sum_plain(torch.as_tensor(contrib), tcb).numpy()
+    assert np.abs(got - plain).max() <= 1e-5 * np.abs(plain).max()
+    base_row, off128, W2 = jo._pallas_grad_tables(jb, jcb, R, K)
+    Kpad = base_row.shape[1]
+    want = jsp.segment_sum_expand(
+        jnp.pad(jnp.asarray(contrib), ((0, 0), (0, Kpad - K))), base_row,
+        off128, R * R, jo._SEG_B, W2, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def test_segment_sum_blocked_model_with_a_long_run():
+    # one texel whose run crosses many windows: the model's carried sums
+    # equal one sequential fp32 sum of the run
+    rng = np.random.default_rng(6)
+    n_tex, K = 256, 4000
+    cb = _long_run_cum(rng, n_tex, K, hot=100, hot_count=3000)
+    contrib = rng.standard_normal((12, K)).astype(np.float32)
+    got = to.segment_sum_blocked(torch.as_tensor(contrib), cb, 64, 16)
+    lo, hi = int(cb[99]), int(cb[100])
+    seq = np.zeros(12, np.float32)
+    for k in range(lo, hi):
+        seq += contrib[:, k]
+    np.testing.assert_array_equal(got[:, 100].numpy(), seq)
+    plain = to.segment_sum_plain(torch.as_tensor(contrib), cb).numpy()
+    assert np.abs(got.numpy() - plain).max() <= 1e-5 * np.abs(plain).max()
+
+
 def test_grad_to_atlas_matches_jax():
     # the dense atlas gradient (rolls included) against the XLA path
     rng = np.random.default_rng(2)
