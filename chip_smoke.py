@@ -19,10 +19,16 @@ Phases (each prints its own lines; any failure exits non-zero):
   3. kernels  : every kernel of the main paths against its plain torch
                 version on the card, at the main paths' shapes: K1 raster
                 (8 views x 512^2, the optimizer's 8 x 256^2 and the
-                1024^2 atlas bake, each timed beside its bound), K4 legacy
-                raster (8 x 512^2 with and without back-face culling, and
-                the optimizer's 8 x 256^2), K2 attention (bf16, T/heads =
-                1024/8, 256/16, 64/16, batch 8; then the training shapes:
+                1024^2 atlas bake), K4 legacy raster (8 x 512^2 culled
+                and not, the optimizer's 8 x 256^2), both also on the
+                binning's edge scene at 8 x 512^2 (big faces in the side
+                lists); at each, the card's face bins against their CPU
+                model as sets, and M, the list entries and side-list
+                lengths; timed beside the bound through the wrapper, on
+                the device (CUDA graph, which a host sync would break),
+                and the binning and the tile kernel apart; K2
+                attention (bf16, T/heads = 1024/8, 256/16, 64/16, batch
+                8; then the training shapes:
                 fp32 hd 16 at T = 64, ragged T, and its gradient, kernel
                 forward + reference backward, against autograd through
                 the plain version), K3 segment sum (R = 1024 with the
@@ -34,9 +40,9 @@ Phases (each prints its own lines; any failure exits non-zero):
                 CUDA-event medians of the kernel, the plain version and
                 (where one exists) a single PyTorch library call of the
                 same function, beside the bound the card's peak rates
-                give; for K2, K3 and K5 also the device time of each
-                launch and of the library call's from CUDA-graph replays
-                (no host time).
+                give; for K1-K5 also the device time of each launch and
+                of the library call's from CUDA-graph replays (no host
+                time).
   4. e2e      : Pipeline.create(configs/default.yaml, device="cuda") with a
                 seeded random 552.8M-parameter bf16 UNet; one warm-up and
                 one timed recon_one_textured_mesh (fresh output dirs, so
@@ -172,53 +178,107 @@ def check_tensor_cores(path: str) -> None:
           f"{sum(fp32)} tensor-core instructions")
 
 
-def check_raster(orast, cof, bbox, res: int, what: str) -> float:
-    """K1 against its plain version on the same coefficients.  Both take
-    the lexicographic minimum of (z, face id), so the face ids must be
-    equal everywhere, exact z ties included; zbuf and barycentrics within
-    1e-5.  Returns the max abs error."""
+def raster_fns(orast, route: str, args, res: int):
+    """(wrapper, plain version, the binning alone, the tile kernel alone on
+    given bins, the tile rectangles of the binning's CPU model) of K1
+    (args = cof, bbox) or K4 (args = tri,)."""
+    if route == "K1":
+        cof, bbox = args
+        return (lambda: orast.rasterize_coefficients(cof, bbox, res),
+                lambda: orast.rasterize_coefficients_plain(cof, bbox, res),
+                lambda: orast.bin_pixel_boxes(bbox, res),
+                lambda b: orast.raster_binned_tiles(cof, bbox, b),
+                orast.tile_rects(bbox, res))
+    (tri,) = args
+    return (lambda: orast.rasterize_legacy(tri, res),
+            lambda: orast.rasterize_legacy_plain(tri, res),
+            lambda: orast.bin_xy_boxes(tri, res),
+            lambda b: orast.raster_legacy_tiles(tri, b),
+            orast.legacy_tile_rects(tri, res))
+
+
+def check_bins(orast, bins, rects, what: str):
+    """The card's bins against bin_faces_plain's on the same tile
+    rectangles: equal starts and side-list lengths (the counts spent), and
+    every tile list and side list equal as a set (the card's order is its
+    atomics').  Returns (list entries, side-list length of each view)."""
     import torch
 
-    got = orast.rasterize_coefficients(cof, bbox, res)
-    want = orast.rasterize_coefficients_plain(cof, bbox, res)
+    model = orast.bin_faces_plain(rects, bins.res)
+    if not torch.equal(bins.work, model.work):
+        fail(f"{what}: the card's counts, starts or side-list lengths "
+             f"differ from bin_faces_plain's")
+    V, F, T = bins.V, bins.F, bins.T
+    n = int(model.starts[-1])
+    tile = torch.repeat_interleave(
+        torch.arange(V * T, device=rects.device),
+        model.starts.diff().long(), output_size=n)
+    key = tile * F
+    if not torch.equal((key + bins.lists[:n]).sort().values,
+                       key + model.lists[:n]):
+        fail(f"{what}: a tile list differs from bin_faces_plain's")
+    side_n = model.side_n.tolist()
+    for v, k in enumerate(side_n):
+        if not torch.equal(bins.side[v, :k].sort().values,
+                           model.side[v, :k]):
+            fail(f"{what}: view {v}'s side list differs from "
+                 f"bin_faces_plain's")
+    return n, side_n
+
+
+def check_raster_shape(orast, route: str, args, res: int, what: str,
+                       timed: bool = True) -> dict:
+    """K1 or K4 against its plain version on the same input: face ids equal
+    at every pixel (exact z ties included: both take the lexicographic
+    minimum of (z, face id)), zbuf and barycentrics within 1e-5 where
+    covered; the card's bins against their CPU model (check_bins); the
+    tile kernel alone on those bins equal to the wrapper.  Timed: the
+    wrapper's ms (CUDA events) and device ms (CUDA graph: the capture
+    fails on a host sync), and the binning's and the tile kernel's
+    apart."""
+    import torch
+
+    from pointdreamer_tpu_torch.ops.raster import BIN_MAX_TILES
+
+    name = "K1 raster_binned" if route == "K1" else "K4 raster_legacy"
+    wrapper, plain, binning, tiles, rects = raster_fns(orast, route, args,
+                                                       res)
+    got = wrapper()
+    want = plain()
     torch.cuda.synchronize()
     n_diff = int((got.face_id != want.face_id).sum())
     if n_diff:
-        fail(f"K1 ({what}) face ids differ at {n_diff} pixels")
-    hit = got.face_id >= 0
-    err = max(float((got.zbuf[hit] - want.zbuf[hit]).abs().max()),
-              float((got.bary[hit] - want.bary[hit]).abs().max()))
-    if not err <= 1e-5:
-        fail(f"K1 ({what}) zbuf/bary differ by {err}")
-    print(f"[K1 raster_binned] {what}: V={cof.shape[0]} res={res} "
-          f"F={cof.shape[1]} covered={int(hit.sum())} "
-          f"face_id_mismatches={n_diff} max_abs_err={err:.3g}")
-    return err
-
-
-def check_legacy(orast, tri, res: int, what: str) -> float:
-    """K4 against its plain version on the same faces: face ids equal at
-    every pixel (ties included), zbuf and barycentrics within 1e-5 where
-    covered.  Returns the max abs error."""
-    import torch
-
-    got = orast.rasterize_legacy(tri, res)
-    want = orast.rasterize_legacy_plain(tri, res)
-    torch.cuda.synchronize()
-    n_diff = int((got.face_id != want.face_id).sum())
-    if n_diff:
-        fail(f"K4 ({what}) face ids differ at {n_diff} pixels")
+        fail(f"{name} ({what}) face ids differ at {n_diff} pixels")
     hit = got.face_id >= 0
     if not bool(hit.any()):
-        fail(f"K4 ({what}) covered no pixel")
+        fail(f"{name} ({what}) covered no pixel")
     err = max(float((got.zbuf[hit] - want.zbuf[hit]).abs().max()),
               float((got.bary[hit] - want.bary[hit]).abs().max()))
     if not err <= 1e-5:
-        fail(f"K4 ({what}) zbuf/bary differ by {err}")
-    print(f"[K4 raster_legacy] {what}: V={tri.shape[0]} res={res} "
-          f"F={tri.shape[1]} covered={int(hit.sum())} "
-          f"face_id_mismatches={n_diff} max_abs_err={err:.3g}")
-    return err
+        fail(f"{name} ({what}) zbuf/bary differ by {err}")
+    bins = binning()
+    pairs, side_n = check_bins(orast, bins, rects, f"{name} ({what})")
+    alone = tiles(bins)
+    if not all(torch.equal(a, b) for a, b in zip(alone, got)):
+        fail(f"{name} ({what}) the tile kernel alone differs from the "
+             f"wrapper")
+    V, F = rects.shape[:2]
+    row = dict(err=err, pairs=pairs, side_n=side_n)
+    line = (f"[{name}] {what}: V={V} res={res} F={F} M={BIN_MAX_TILES} "
+            f"list_entries={pairs} (capacity {V * F * BIN_MAX_TILES}) "
+            f"side_list={side_n} covered={int(hit.sum())} "
+            f"face_id_mismatches={n_diff} max_abs_err={err:.3g}")
+    if timed:
+        row.update(ms=cuda_ms(wrapper), device_ms=graph_ms(wrapper),
+                   bin_ms=cuda_ms(binning), bin_device_ms=graph_ms(binning),
+                   tile_ms=cuda_ms(lambda: tiles(bins)),
+                   tile_device_ms=graph_ms(lambda: tiles(bins)))
+        line += (f" ms={row['ms']:.4f} device_ms={row['device_ms']:.4f}; "
+                 f"binning ms={row['bin_ms']:.4f} device_ms="
+                 f"{row['bin_device_ms']:.4f}; tile kernel ms="
+                 f"{row['tile_ms']:.4f} device_ms={row['tile_device_ms']:.4f}")
+    print(line)
+    return row
 
 
 def to_surface(p, v, f, chunk: int = 512):
@@ -791,41 +851,103 @@ def main() -> int:
     verts_t = torch.as_tensor(verts, device=dev)
     faces_t = torch.as_tensor(faces, device=dev)
 
-    # K1 at the project stage's shape: 8 views x 512^2, no culling
+    # K1 and K4 at the main paths' launch shapes.  project: 8 views x 512^2
+    # (K1 without culling on the cached mesh; K4 culled, as project does on
+    # the port's own reconstruction, and also without); optimize: the view
+    # maps at 8 x 256^2, culled; bake (K1 only): one 1024^2 view of the uv
+    # layout, depth 1 everywhere, so every overlap is an exact z tie
     ndc, depth = rig.transform(verts_t)
     lo, hi = ndc.amin(1, keepdim=True), ndc.amax(1, keepdim=True)
     ndc = (ndc - (lo + hi) / 2) / (hi - lo).amax(2, keepdim=True) \
         * (1 - 2 * cfg.crop_padding) * 2.0
     res = cfg.cam_res
-    cof, bbox = orast.prepare_views(ndc, depth, faces_t, res, False)
-    k1_err = check_raster(orast, cof, bbox, res, "project")
-    # and at the atlas bake's shape: one 1024^2 view of the uv layout,
-    # depth 1 everywhere, so every overlap is an exact z tie
     R = cfg.xatlas_texture_res
+    rr = cfg.optimize_render_res
     uvs, fuv = punwrap.unwrap(verts, faces, atlas_res=R)
-    uv_t = torch.as_tensor(uvs, device=dev)
-    cof_b, bbox_b = orast.prepare_views(
-        (uv_t * 2.0 - 1.0)[None], torch.ones((1, len(uvs)), device=dev),
-        torch.as_tensor(fuv, device=dev), R, False)
-    k1_err = max(k1_err, check_raster(orast, cof_b, bbox_b, R, "bake"))
-    pairs = orast.tile_face_pairs(bbox)
-    tests = pixel_box_tests(ndc, faces_t, bbox, res)
-    V, F = cof.shape[:2]
-    k1_ms = cuda_ms(lambda: orast.rasterize_coefficients(cof, bbox, res))
-    k1_plain = cuda_ms(lambda: orast.rasterize_coefficients_plain(
-        cof, bbox, res), reps=3, warmup=1)
-    # 16 operations per (pixel, face) test: three edge functions and z
-    k1_bound, k1_by = bound(V * F * 16 * 4 + V * res * res * 20,
-                            16.0 * tests, FP32_OPS_PER_S)
-    print(f"[K1 raster_binned] V={V} res={res} F={F} pixel_box_tests={tests} "
-          f"kernel_tile_pairs={pairs} max_abs_err={k1_err:.3g} "
-          f"ms={k1_ms:.4f} plain_ms={k1_plain:.3f} "
-          f"bound_ms={k1_bound:.4f} ({k1_by})")
-    table.append(dict(name="raster_binned", route="cuda",
-                      source="pointdreamer_tpu_torch/csrc/raster.cu",
-                      replaces="pointdreamer_tpu/kernels/raster_pallas.py:143",
-                      max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
-                      bound_ms=k1_bound, bound_by=k1_by, library_ms=None))
+    uv_ndc = (torch.as_tensor(uvs, device=dev) * 2.0 - 1.0)[None]
+    fuv_t = torch.as_tensor(fuv, device=dev)
+    proj = pproject.project_views(rig, verts_t, faces_t,
+                                  torch.as_tensor(xyz_n, device=dev),
+                                  padding=cfg.crop_padding,
+                                  cull_backface=False)
+    ndc_o, depth_o = rig.transform(verts_t)
+    ndc_o = ((ndc_o - proj.uv_centers) / proj.uv_scales
+             * (1.0 - 2.0 * proj.padding) + 0.5).clamp(0.0, 1.0) * 2.0 - 1.0
+    shapes = {   # (route, what): (input, res, ndc and faces of the bound)
+        ("K1", "project"): (orast.prepare_views(ndc, depth, faces_t, res,
+                                                False), res, ndc, faces_t),
+        ("K1", "optimize"): (orast.prepare_views(ndc_o, depth_o, faces_t, rr,
+                                                 True), rr, ndc_o, faces_t),
+        ("K1", "bake"): (orast.prepare_views(
+            uv_ndc, torch.ones(uv_ndc.shape[:2], device=dev), fuv_t, R,
+            False), R, uv_ndc, fuv_t),
+        ("K4", "project, culled"): ((orast.prepare_legacy(
+            ndc, depth, faces_t, res, True),), res, ndc, faces_t),
+        ("K4", "optimize"): ((orast.prepare_legacy(
+            ndc_o, depth_o, faces_t, rr, True),), rr, ndc_o, faces_t),
+    }
+    rows = {}
+    for (route, what), (args, r_, nd_, fa_) in shapes.items():
+        row = check_raster_shape(orast, route, args, r_, what)
+        # the least time: bytes, the inputs once (K1 12 coefficients and a
+        # 4-int pixel box a face, K4 its 13 floats) and 20 B a pixel out;
+        # operations, 16 per (pixel, face) test of each face's own xy box
+        # that can show (three edge functions and z)
+        b_ = args[1] if route == "K1" else orast.prepare_views(
+            nd_, torch.ones(nd_.shape[:2], device=dev), fa_, r_, True)[1]
+        n_in = (args[0].shape[0] * args[0].shape[1]
+                * (16 if route == "K1" else orast.LEGACY_WIDTH))
+        row["tests"] = pixel_box_tests(nd_, fa_, b_, r_)
+        row["bound_ms"], row["bound_by"] = bound(
+            n_in * 4 + args[0].shape[0] * r_ * r_ * 20, 16.0 * row["tests"],
+            FP32_OPS_PER_S)
+        print(f"[{route}] {what}: pixel_box_tests={row['tests']} "
+              f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}); device "
+              f"time {row['bound_ms'] / row['device_ms']:.1%} of it")
+        rows[route, what] = row
+    # checked only: K4 without culling, and the binning's edge scene at 8 x
+    # 512^2 (2,000 small faces a view, big faces past M tiles and a
+    # screen-filling quad in the side lists, a zero-area sliver, a NaN
+    # corner, an empty last view)
+    k4_errs = [check_raster_shape(
+        orast, "K4", (orast.prepare_legacy(ndc, depth, faces_t, res,
+                                           False),),
+        res, "project, no culling", timed=False)["err"]]
+    e_ndc, e_depth, e_faces = (torch.as_tensor(a, device=dev) for a in
+                               synthetic.raster_edge_scene(8, res, 2000))
+    k1_errs = [check_raster_shape(
+        orast, "K1", orast.prepare_views(e_ndc, e_depth, e_faces, res, False),
+        res, "edge scene", timed=False)["err"]]
+    for cull in (False, True):
+        k4_errs.append(check_raster_shape(
+            orast, "K4", (orast.prepare_legacy(e_ndc, e_depth, e_faces, res,
+                                               cull),),
+            res, f"edge scene, {'culled' if cull else 'no culling'}",
+            timed=False)["err"])
+    # the plain versions' time at the project shapes
+    plain_ms = {route: cuda_ms(raster_fns(orast, route, shapes[route, what][0],
+                                          res)[1], reps=3, warmup=1)
+                for route, what in (("K1", "project"),
+                                    ("K4", "project, culled"))}
+    for route, name, src, repl, head in (
+            ("K1", "raster_binned", "raster.cu", 143, "project"),
+            ("K4", "raster_legacy", "raster_legacy.cu", 310,
+             "project, culled")):
+        mine = {w: r_ for (rt, w), r_ in rows.items() if rt == route}
+        print(f"[{route}] " + "; ".join(
+            f"{w}: ms={r_['ms']:.4f} device_ms={r_['device_ms']:.4f} "
+            f"bound_ms={r_['bound_ms']:.4f}" for w, r_ in mine.items())
+            + f"; plain_ms ({head}) {plain_ms[route]:.3f}")
+        errs = k1_errs if route == "K1" else k4_errs
+        table.append(dict(
+            name=name, route="cuda",
+            source=f"pointdreamer_tpu_torch/csrc/{src}",
+            replaces=f"pointdreamer_tpu/kernels/raster_pallas.py:{repl}",
+            max_abs_err=max(errs + [r_["err"] for r_ in mine.values()]),
+            ms=mine[head]["ms"], device_ms=mine[head]["device_ms"],
+            plain_ms=plain_ms[route], bound_ms=mine[head]["bound_ms"],
+            bound_by=mine[head]["bound_by"], library_ms=None))
+    del shapes, e_ndc, e_depth, e_faces
 
     # K2 at the UNet's three attention shapes (per forward: 5 + 5 + 6)
     import torch.nn.functional as F_
@@ -886,10 +1008,6 @@ def main() -> int:
                       bound_by=k2_by, library_ms=k2["library_ms"]))
 
     # K3 at R = 1024 with the optimizer's real pixel tables
-    proj = pproject.project_views(rig, verts_t, faces_t,
-                                  torch.as_tensor(xyz_n, device=dev),
-                                  padding=cfg.crop_padding,
-                                  cull_backface=False)
     ones = torch.ones(cfg.view_num, device=dev)
     uv_map, fg = popt.precompute_view_uv_maps(
         rig, verts_t, faces_t, torch.as_tensor(uvs, device=dev),
@@ -905,61 +1023,7 @@ def main() -> int:
     table.append(check_segsum(popt, contrib, cum_bounds, base, R,
                               "optimize tables"))
 
-    # K4 at project's 8 x 512^2, with and without back-face culling (the
-    # timed row culls, as project does on the port's own reconstruction),
-    # and at the optimizer's 8 x 256^2 view maps (culled)
-    tri_k4 = orast.prepare_legacy(ndc, depth, faces_t, res, False)
-    k4_err = check_legacy(orast, tri_k4, res, "project, no culling")
-    tri_k4 = orast.prepare_legacy(ndc, depth, faces_t, res, True)
-    k4_err = max(k4_err, check_legacy(orast, tri_k4, res, "project, culled"))
-    rr = cfg.optimize_render_res
-    ndc_o, depth_o = rig.transform(verts_t)
-    ndc_o = ((ndc_o - proj.uv_centers) / proj.uv_scales
-             * (1.0 - 2.0 * proj.padding) + 0.5).clamp(0.0, 1.0) * 2.0 - 1.0
-    tri_o = orast.prepare_legacy(ndc_o, depth_o, faces_t, rr, True)
-    k4_err = max(k4_err, check_legacy(orast, tri_o, rr, "optimize"))
-    _, bbox_c = orast.prepare_views(ndc, depth, faces_t, res, True)
-    tests4 = pixel_box_tests(ndc, faces_t, bbox_c, res)
-    k4_ms = cuda_ms(lambda: orast.rasterize_legacy(tri_k4, res))
-    k4_plain = cuda_ms(lambda: orast.rasterize_legacy_plain(tri_k4, res),
-                       reps=3, warmup=1)
-    k4_opt_ms = cuda_ms(lambda: orast.rasterize_legacy(tri_o, rr))
-    # bytes: the 13 floats of each face and view in, 20 B a pixel out;
-    # operations: 16 per (pixel, face) test of each face's own xy box
-    k4_bound, k4_by = bound(tri_k4.numel() * 4 + V * res * res * 20,
-                            16.0 * tests4, FP32_OPS_PER_S)
-    cof_o, bbox_o = orast.prepare_views(ndc_o, depth_o, faces_t, rr, True)
-    tests_o = pixel_box_tests(ndc_o, faces_t, bbox_o, rr)
-    k4_opt_bound, k4_opt_by = bound(tri_o.numel() * 4 + V * rr * rr * 20,
-                                    16.0 * tests_o, FP32_OPS_PER_S)
-    print(f"[K4 raster_legacy] V={V} res={res} F={F} culled "
-          f"pixel_box_tests={tests4} max_abs_err={k4_err:.3g} "
-          f"ms={k4_ms:.4f} plain_ms={k4_plain:.3f} "
-          f"bound_ms={k4_bound:.4f} ({k4_by}); optimize {rr}^2 "
-          f"pixel_box_tests={tests_o} ms={k4_opt_ms:.4f} "
-          f"bound_ms={k4_opt_bound:.4f} ({k4_opt_by})")
-    # K1 at its other launch shapes: the optimizer's view maps (8 x 256^2,
-    # culled; K1 there when the switch is off) and the atlas bake (1 x
-    # 1024^2, every run)
-    k1_err = max(k1_err, check_raster(orast, cof_o, bbox_o, rr, "optimize"))
-    for what, (c_, b_, nd_, fa_, r_) in (
-            ("optimize", (cof_o, bbox_o, ndc_o, faces_t, rr)),
-            ("bake", (cof_b, bbox_b, (uv_t * 2.0 - 1.0)[None],
-                      torch.as_tensor(fuv, device=dev), R))):
-        t_ = pixel_box_tests(nd_, fa_, b_, r_)
-        ms_ = cuda_ms(lambda: orast.rasterize_coefficients(c_, b_, r_))
-        b_ms, b_by = bound(c_.shape[0] * c_.shape[1] * 16 * 4
-                           + c_.shape[0] * r_ * r_ * 20, 16.0 * t_,
-                           FP32_OPS_PER_S)
-        print(f"[K1 raster_binned] {what}: V={c_.shape[0]} res={r_} "
-              f"F={c_.shape[1]} pixel_box_tests={t_} ms={ms_:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by})")
-    table.append(dict(name="raster_legacy", route="cuda",
-                      source="pointdreamer_tpu_torch/csrc/raster_legacy.cu",
-                      replaces="pointdreamer_tpu/kernels/raster_pallas.py:310",
-                      max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain,
-                      bound_ms=k4_bound, bound_by=k4_by, library_ms=None))
-    del proj, uv_map, fg, contrib, tri_k4, tri_o
+    del proj, uv_map, fg, contrib
 
     # K2 beyond the inference shapes, K5 and K6 (no caller on the main
     # paths: their launches there are 0)

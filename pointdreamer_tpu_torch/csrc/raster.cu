@@ -4,117 +4,118 @@
 // rasterize_views_binned_pallas (_binned_kernel + the XLA binning of
 // _bin_faces_sorted_rect).  The per-face affine coefficients
 // l_i = A_i x + B_i y + C_i and the z plane (12 floats a face, computed in
-// torch exactly as _face_coefficients does) come in; face_id, zbuf and
-// barycentrics come out.
-//
-// What bounds it on the H100: neither HBM bytes (outputs are 20 B a pixel)
-// nor FLOPs in bulk, but the per-pixel candidate loop: every (tile, face)
-// pair costs 256 pixel tests of ~15 fp32 operations, so the time follows
-// the number of pairs, and the binning's atomics follow the same count.
+// torch exactly as _face_coefficients does) and the faces' integer pixel
+// boxes come in; face_id, zbuf and barycentrics come out.
 //
 // Design, in place of the TPU's (8,128) tiles, K-candidate lists and
 // side list (which exist for Mosaic's sublane rules):
-//   1. pd_bin_count: one thread per (view, face) adds 1 to the counter of
-//      every 16x16 tile its pixel bbox touches (atomics);
-//   2. the wrapper takes an exclusive scan of the counts (torch.cumsum),
-//      so every list is sized exactly and no face is ever dropped;
-//   3. pd_bin_fill: the same walk writes face ids into the lists;
-//   4. pd_raster_tiles: one block per (view, tile), one thread per pixel.
-//      Candidate coefficients are staged through shared memory 256 at a
-//      time and every thread keeps its best (z, face_id, l0, l1, l2) in
-//      registers.  The winner is the lexicographic minimum of (z, face_id),
-//      so the result does not depend on the (atomic) list order.
+//   1. pd_bin_pixel_boxes: the binning of raster_bin.cuh, each face's tile
+//      rectangle computed here from its pixel box (x0, y0, x1, y1) / 16.
+//      Faces of at most M tiles go to their tiles' lists, bigger ones to
+//      the view's side list, so no face is dropped, and every buffer is
+//      sized from V, F and res: no host read, no sync;
+//   2. pd_raster_tiles: one block per (tile, view), one thread per pixel.
+//      The tile's list and then the side list (whose faces pass the tile
+//      test first, compacted by a ballot) are staged through shared
+//      memory 256 candidates at a time: 12 coefficients as three 16-byte
+//      loads and the rows of the face's pixel box, so that a warp (two
+//      rows of the tile) skips the faces whose box misses its rows.  Every
+//      thread keeps its best (z, face_id, l0, l1, l2) in registers.  The
+//      winner is the lexicographic minimum of (z, face_id), so the result
+//      does not depend on the (atomic) list order.
 // The edge functions use __fmul_rn/__fadd_rn so that `l >= 0` and z are
 // decided with the rounding of the plain torch version, op for op.
-#include <cuda_runtime.h>
-#include <stdint.h>
+//
+// What bounds it on the H100: neither HBM bytes (outputs are 20 B a pixel)
+// nor FLOPs in bulk, but instruction issue in the candidate loop: every
+// (tile, face) pair costs each warp whose rows the face's box meets 32
+// pixel tests of ~16 fp32 operations, 4 compares and a 48-byte broadcast
+// read from shared memory, so the time follows the number of pairs
+// (starts[V*T]) and the rows their boxes span; the binning's atomics
+// follow the pairs too.
+#include "raster_bin.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kThreads = kTile * kTile;
+using pd_bin::kThreads;
+using pd_bin::kTile;
+using pd_bin::kWarps;
 constexpr float kBig = 3.0e38f;
 
-__global__ void bin_count_kernel(const int* __restrict__ bbox, int V, int F,
-                                 int ntx, int* __restrict__ counts) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (int64_t)V * F) return;
-  int v = (int)(i / F);
-  const int* b = bbox + i * 4;
-  int x0 = b[0], y0 = b[1], x1 = b[2], y1 = b[3];
-  int* c = counts + (int64_t)v * ntx * ntx;
-  for (int ty = y0; ty <= y1; ++ty)
-    for (int tx = x0; tx <= x1; ++tx) atomicAdd(c + ty * ntx + tx, 1);
-}
+struct PixelBoxRect {
+  const int* bbox;
+  int res;
+  __device__ __forceinline__ pd_bin::Rect operator()(int64_t vf) const {
+    return pd_bin::rect_of_pixel_box(bbox + vf * 4, res);
+  }
+};
 
-__global__ void bin_fill_kernel(const int* __restrict__ bbox, int V, int F,
-                                int ntx, const int64_t* __restrict__ starts,
-                                int* __restrict__ cursor,
-                                int* __restrict__ lists) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (int64_t)V * F) return;
-  int v = (int)(i / F);
-  int f = (int)(i % F);
-  const int* b = bbox + i * 4;
-  int x0 = b[0], y0 = b[1], x1 = b[2], y1 = b[3];
-  int64_t base = (int64_t)v * ntx * ntx;
-  for (int ty = y0; ty <= y1; ++ty)
-    for (int tx = x0; tx <= x1; ++tx) {
-      int64_t t = base + ty * ntx + tx;
-      int pos = atomicAdd(cursor + t, 1);
-      lists[starts[t] + pos] = f;
-    }
-}
-
-__device__ __forceinline__ float plane(const float* c, float x, float y) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(c[0], x), __fmul_rn(c[1], y)), c[2]);
+__device__ __forceinline__ float plane(float a, float b, float c, float x,
+                                       float y) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a, x), __fmul_rn(b, y)), c);
 }
 
 __global__ void __launch_bounds__(kThreads)
-raster_tiles_kernel(const float* __restrict__ cof, int F, int res, int ntx,
-                    const int64_t* __restrict__ starts,
-                    const int* __restrict__ lists, float* __restrict__ zbuf,
-                    int* __restrict__ fid, float* __restrict__ bary) {
-  __shared__ float s_cof[kThreads][13];
+raster_tiles_kernel(const float* __restrict__ cof, PixelBoxRect rect_of,
+                    int F, int res, int ntx, pd_bin::Bins bins,
+                    float* __restrict__ zbuf, int* __restrict__ fid,
+                    float* __restrict__ bary) {
+  __shared__ float4 s_cof[kThreads][3];
   __shared__ int s_fid[kThreads];
+  __shared__ int s_rows[kThreads];
+  __shared__ int s_warp[kWarps];
   const int tile = blockIdx.x;
   const int v = blockIdx.y;
-  const int T = ntx * ntx;
-  const int px = (tile % ntx) * kTile + (threadIdx.x % kTile);
-  const int py = (tile / ntx) * kTile + (threadIdx.x / kTile);
+  const int tx = tile % ntx, ty = tile / ntx;
+  const int px = tx * kTile + (threadIdx.x % kTile);
+  const int py = ty * kTile + (threadIdx.x / kTile);
+  const int warp = threadIdx.x >> 5;
   const float x = (float)px + 0.5f;
   const float y = (float)py + 0.5f;
-  const int64_t s = starts[(int64_t)v * T + tile];
-  const int64_t e = starts[(int64_t)v * T + tile + 1];
+  const pd_bin::TileCandidates cand(bins, v, tile, ntx * ntx, F);
+  const int total = cand.total();
 
   float bz = kBig, b0 = 0.f, b1 = 0.f, b2 = 0.f;
   int bf = -1;
-  for (int64_t chunk = s; chunk < e; chunk += kThreads) {
-    int n = (int)min((int64_t)kThreads, e - chunk);
-    if ((int)threadIdx.x < n) {
-      int f = lists[chunk + threadIdx.x];
-      const float* c = cof + ((int64_t)v * F + f) * 12;
-      s_fid[threadIdx.x] = f;
-#pragma unroll
-      for (int k = 0; k < 12; ++k) s_cof[threadIdx.x][k] = c[k];
+  for (int base = 0; base < total; base += kThreads) {
+    const int k = base + threadIdx.x;
+    int f = -1;
+    bool keep = false;
+    if (k < total) {
+      bool from_side;
+      f = cand.face(k, from_side);
+      keep = !from_side || rect_of((int64_t)v * F + f).has(tx, ty);
+    }
+    int n;
+    const int slot = pd_bin::compact(keep, s_warp, n);
+    if (slot >= 0) {
+      const int64_t vf = (int64_t)v * F + f;
+      const float4* c = reinterpret_cast<const float4*>(cof + vf * 12);
+      s_cof[slot][0] = __ldg(c);
+      s_cof[slot][1] = __ldg(c + 1);
+      s_cof[slot][2] = __ldg(c + 2);
+      s_fid[slot] = f;
+      s_rows[slot] = pd_bin::pack_rows(rect_of.bbox[vf * 4 + 1],
+                                       rect_of.bbox[vf * 4 + 3], ty * kTile);
     }
     __syncthreads();
     for (int i = 0; i < n; ++i) {
-      const float* c = s_cof[i];
-      float l0 = plane(c, x, y);
-      float l1 = plane(c + 3, x, y);
-      float l2 = plane(c + 6, x, y);
-      float zk = plane(c + 9, x, y);
+      if (pd_bin::rows_miss(s_rows[i], warp)) continue;
+      const float4 c0 = s_cof[i][0], c1 = s_cof[i][1], c2 = s_cof[i][2];
+      const float l0 = plane(c0.x, c0.y, c0.z, x, y);
+      const float l1 = plane(c0.w, c1.x, c1.y, x, y);
+      const float l2 = plane(c1.z, c1.w, c2.x, x, y);
+      const float zk = plane(c2.y, c2.z, c2.w, x, y);
       if (l0 >= 0.f && l1 >= 0.f && l2 >= 0.f && zk > 0.f) {
-        int f = s_fid[i];
-        if (zk < bz || (zk == bz && f < bf)) {
-          bz = zk; bf = f; b0 = l0; b1 = l1; b2 = l2;
+        const int fi = s_fid[i];
+        if (zk < bz || (zk == bz && fi < bf)) {
+          bz = zk; bf = fi; b0 = l0; b1 = l1; b2 = l2;
         }
       }
     }
     __syncthreads();
   }
-  int64_t o = ((int64_t)v * res + py) * res + px;
+  const int64_t o = ((int64_t)v * res + py) * res + px;
   zbuf[o] = bf >= 0 ? bz : __int_as_float(0x7f800000);
   fid[o] = bf;
   bary[o * 3 + 0] = b0;
@@ -126,43 +127,27 @@ raster_tiles_kernel(const float* __restrict__ cof, int F, int res, int ntx,
 
 extern "C" {
 
-// bbox [V,F,4] int32 tile rectangles (x0,y0,x1,y1 inclusive; empty when
-// x0 > x1); counts [V*ntx*ntx] int32, zeroed by the caller.
-int pd_bin_count(const void* bbox, int V, int F, int ntx, void* counts,
-                 void* stream) {
-  int64_t n = (int64_t)V * F;
-  if (n > 0) {
-    int blocks = (int)((n + 255) / 256);
-    bin_count_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
-        (const int*)bbox, V, F, ntx, (int*)counts);
-  }
-  return (int)cudaGetLastError();
+// bbox [V,F,4] int32 inclusive pixel boxes (empty when x0 > x1); work and
+// ids int32 buffers laid out as raster_bin.cuh says.  res % 16 == 0.
+int pd_bin_pixel_boxes(const void* bbox, int V, int F, int res,
+                       int max_tiles, void* work, void* ids, void* stream) {
+  return pd_bin::bin_faces(PixelBoxRect{(const int*)bbox, res}, V, F, res,
+                           max_tiles, work, ids, (cudaStream_t)stream);
 }
 
-// starts [V*T+1] int64 exclusive scan of the counts; cursor [V*T] int32
-// zeroed; lists [starts[V*T]] int32.
-int pd_bin_fill(const void* bbox, int V, int F, int ntx, const void* starts,
-                void* cursor, void* lists, void* stream) {
-  int64_t n = (int64_t)V * F;
-  if (n > 0) {
-    int blocks = (int)((n + 255) / 256);
-    bin_fill_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
-        (const int*)bbox, V, F, ntx, (const int64_t*)starts, (int*)cursor,
-        (int*)lists);
-  }
-  return (int)cudaGetLastError();
-}
-
-// cof [V,F,12] f32; outputs zbuf [V,res,res] f32, fid [V,res,res] i32,
-// bary [V,res,res,3] f32.  res % 16 == 0.
-int pd_raster_tiles(const void* cof, int V, int F, int res,
-                    const void* starts, const void* lists, void* zbuf,
-                    void* fid, void* bary, void* stream) {
-  int ntx = res / kTile;
-  dim3 grid(ntx * ntx, V);
+// cof [V,F,12] f32 (16-byte aligned); bins from pd_bin_pixel_boxes on the
+// same bbox; outputs zbuf [V,res,res] f32, fid [V,res,res] i32,
+// bary [V,res,res,3] f32.
+int pd_raster_tiles(const void* cof, const void* bbox, int V, int F,
+                    int res, int max_tiles, void* work, void* ids,
+                    void* zbuf, void* fid, void* bary, void* stream) {
+  const int ntx = res / kTile;
+  if (V == 0 || ntx == 0) return 0;
+  const dim3 grid(ntx * ntx, V);
   raster_tiles_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)cof, F, res, ntx, (const int64_t*)starts,
-      (const int*)lists, (float*)zbuf, (int*)fid, (float*)bary);
+      (const float*)cof, PixelBoxRect{(const int*)bbox, res}, F, res, ntx,
+      pd_bin::bins_of(work, ids, V, F, ntx * ntx, max_tiles), (float*)zbuf,
+      (int*)fid, (float*)bary);
   return (int)cudaGetLastError();
 }
 

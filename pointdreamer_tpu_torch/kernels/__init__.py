@@ -1,7 +1,8 @@
 """Build and bind the port's hand-written Hopper kernels.
 
 The CUDA sources under `pointdreamer_tpu_torch/csrc/*.cu` (and the
-tensor-core helpers they share, `csrc/tc.cuh`) have a plain C interface.
+headers they share: the tensor-core helpers `csrc/tc.cuh`, the face
+binning of K1 and K4 `csrc/raster_bin.cuh`) have a plain C interface.
 At first use they are compiled with `nvcc` for `sm_90a` (one process per
 source, all started together), linked into one shared library in the
 git-ignored build directory `<repo>/build/pointdreamer_tpu_torch/`, and
@@ -33,7 +34,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
                          "pointdreamer_tpu_torch")
 SOURCES = ("raster.cu", "raster_legacy.cu", "attention.cu", "segsum.cu",
            "groupnorm.cu", "winograd.cu")
-HEADERS = ("tc.cuh",)
+HEADERS = ("tc.cuh", "raster_bin.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -53,10 +54,10 @@ _LOCK = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "pd_bin_count": [_P, _I, _I, _I, _P, _P],
-    "pd_bin_fill": [_P, _I, _I, _I, _P, _P, _P, _P],
-    "pd_raster_tiles": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "pd_raster_legacy": [_P, _I, _I, _I, _P, _P, _P, _P],
+    "pd_bin_pixel_boxes": [_P, _I, _I, _I, _I, _P, _P, _P],
+    "pd_bin_xy_boxes": [_P, _I, _I, _I, _I, _P, _P, _P],
+    "pd_raster_tiles": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "pd_raster_legacy": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "pd_attention_qkv": [_P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     "pd_segment_sum": [_P, _P, ctypes.c_int64, _I, _I, _I, _P, _P],
     "pd_groupnorm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,

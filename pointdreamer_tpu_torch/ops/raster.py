@@ -17,6 +17,13 @@ Two routes, chosen as the JAX package's `rasterize_views` chooses:
       plain version on a CPU tensor.  Edge functions are evaluated per
       pixel, w0 = (cx-bx)(y-by) - (cy-by)(x-bx), l_i = w_i / area.
 
+On the card both kernels first bin the faces into 16x16-pixel tiles
+(csrc/raster_bin.cuh; `bin_pixel_boxes`, `bin_xy_boxes`): a face of at
+most BIN_MAX_TILES tiles goes to those tiles' lists, a bigger one to its
+view's side list, which every tile of the view reads.  Every buffer is
+sized from the shapes (`bin_capacity`), so neither wrapper reads anything
+back from the card.  `bin_faces_plain` is the binning's CPU model.
+
 A pixel is inside when all l >= 0 and z > 0 (K4 also needs |area| >
 1e-12).  Among inside faces the lexicographic minimum of (z, face_id)
 wins, so exact z ties go to the lower face id in every version.  Outputs:
@@ -34,6 +41,7 @@ from .. import kernels
 
 TILE = 16
 _BIG = 3.0e38
+LEGACY_WIDTH = 13       # ax ay bx by cx cy z0 z1 z2 x0 y0 x1 y1
 
 
 class RasterOut(NamedTuple):
@@ -149,9 +157,9 @@ def _zbuffer_plain(evaluate, bbox: torch.Tensor, res: int,
     return RasterOut(face_id=fid, zbuf=z, bary=bary)
 
 
-def rasterize_coefficients_plain(cof: torch.Tensor, bbox: torch.Tensor,
-                                 res: int) -> RasterOut:
-    """Plain torch version of K1 (affine coefficients cof [V,F,12])."""
+def coefficient_planes(cof: torch.Tensor):
+    """K1's per-pixel arithmetic on cof [V,F,12]: the `evaluate` of
+    _zbuffer_plain."""
     def evaluate(v, c0, n, xs, ys):
         c = cof[v, c0:c0 + n][:, :, None, None]               # [n,12,1,1]
         l0 = c[:, 0] * xs + c[:, 1] * ys + c[:, 2]
@@ -160,63 +168,203 @@ def rasterize_coefficients_plain(cof: torch.Tensor, bbox: torch.Tensor,
         zk = c[:, 9] * xs + c[:, 10] * ys + c[:, 11]
         return l0, l1, l2, zk, (l0 >= 0) & (l1 >= 0) & (l2 >= 0) & (zk > 0)
 
-    return _zbuffer_plain(evaluate, bbox, res)
+    return evaluate
 
 
-def tile_rects(bbox: torch.Tensor) -> torch.Tensor:
-    """Pixel rectangles [..., 4] -> the inclusive rectangles of TILE x TILE
-    tiles they touch (empty stays empty)."""
-    empty = torch.tensor([1, 1, 0, 0], dtype=torch.int32, device=bbox.device)
-    return torch.where(bbox[..., 0:1] <= bbox[..., 2:3],
-                       torch.div(bbox, TILE, rounding_mode="floor"),
-                       empty).to(torch.int32).contiguous()
+def rasterize_coefficients_plain(cof: torch.Tensor, bbox: torch.Tensor,
+                                 res: int) -> RasterOut:
+    """Plain torch version of K1 (affine coefficients cof [V,F,12])."""
+    return _zbuffer_plain(coefficient_planes(cof), bbox, res)
 
 
-def tile_face_pairs(bbox: torch.Tensor) -> int:
-    """The number of (tile, face) candidate pairs the binned kernel tests:
-    the length of its bin lists for these pixel rectangles."""
-    tb = tile_rects(bbox).long()
-    n = (tb[..., 2] - tb[..., 0] + 1) * (tb[..., 3] - tb[..., 1] + 1)
-    return int(n.clamp(min=0).sum())
+# ---- the binning shared by K1 and K4 (csrc/raster_bin.cuh) -------------
+
+# M: a face whose tile rectangle holds at most M tiles goes to those
+# tiles' lists, a bigger one to its view's side list, which every tile of
+# the view reads.  16 keeps the side lists of the main paths (nearly)
+# empty: every face of the 19,200-triangle cube covers at most 6 tiles at
+# 512^2, and all but a handful of the 10,000-face SPR mesh's at most 16.
+BIN_MAX_TILES = 16
+
+
+class Bins(NamedTuple):
+    """Per-tile face lists and per-view side lists in the card's layout
+    (csrc/raster_bin.cuh): work = counts [V*T] | side_n [V] | starts
+    [V*T+1], ids = lists [V*F*M] | side [V*F], all int32.  Tile t of view
+    v (t = ty * (res/16) + tx) holds lists[starts[v*T+t]:starts[v*T+t+1]];
+    view v's side list is side[v, :side_n[v]]."""
+    work: torch.Tensor
+    ids: torch.Tensor
+    V: int
+    F: int
+    res: int
+
+    @property
+    def T(self) -> int:
+        return (self.res // TILE) ** 2
+
+    @property
+    def side_n(self) -> torch.Tensor:
+        return self.work[self.V * self.T:self.V * self.T + self.V]
+
+    @property
+    def starts(self) -> torch.Tensor:
+        return self.work[self.V * self.T + self.V:]
+
+    @property
+    def lists(self) -> torch.Tensor:
+        return self.ids[:self.V * self.F * BIN_MAX_TILES]
+
+    @property
+    def side(self) -> torch.Tensor:
+        return self.ids[self.V * self.F * BIN_MAX_TILES:].view(self.V,
+                                                               self.F)
+
+
+def bin_capacity(V: int, F: int, res: int):
+    """(work, ids) lengths: every buffer of the binning follows from the
+    shapes, so nothing is read back from the card to size it."""
+    T = (res // TILE) ** 2
+    return 2 * V * T + V + 1, V * F * (BIN_MAX_TILES + 1)
+
+
+_EMPTY_RECT = (1, 1, 0, 0)
+
+
+def tile_rects(bbox: torch.Tensor, res: int) -> torch.Tensor:
+    """K1's tile rectangles: inclusive pixel boxes [..., 4] (x0, y0, x1,
+    y1; empty when x0 > x1) clipped to the screen, divided by TILE."""
+    x0, y0, x1, y1 = bbox.long().unbind(-1)
+    ok = ((x0 <= x1) & (y0 <= y1) & (x1 >= 0) & (y1 >= 0) & (x0 < res)
+          & (y0 < res))
+    r = torch.stack([x0.clamp(min=0), y0.clamp(min=0), x1.clamp(max=res - 1),
+                     y1.clamp(max=res - 1)], -1) // TILE
+    empty = torch.tensor(_EMPTY_RECT, device=bbox.device)
+    return torch.where(ok[..., None], r, empty).to(torch.int32)
+
+
+def legacy_tile_rects(tri: torch.Tensor, res: int) -> torch.Tensor:
+    """K4's tile rectangles from prepare_legacy's continuous xy box
+    (columns 9-12): tile tx can hold a covered pixel centre only if
+    fx1 >= 16 tx and fx0 < 16 tx + 16, i.e. floor(fx0 / 16) <= tx <=
+    floor(fx1 / 16).  NaN and off-screen boxes are empty."""
+    a0, b0, a1, b1 = torch.floor(tri[..., 9:13] * (1.0 / TILE)).unbind(-1)
+    last = float(res // TILE - 1)
+    ok = ((a1 >= 0) & (b1 >= 0) & (a0 <= last) & (b0 <= last) & (a0 <= a1)
+          & (b0 <= b1))
+    r = torch.stack([a0.clamp(min=0), b0.clamp(min=0), a1.clamp(max=last),
+                     b1.clamp(max=last)], -1)
+    empty = torch.tensor(_EMPTY_RECT, dtype=r.dtype, device=tri.device)
+    return torch.where(ok[..., None], r, empty).to(torch.int32)
+
+
+def bin_faces_plain(rects: torch.Tensor, res: int) -> Bins:
+    """Plain torch model of the card's binning, from tile rectangles
+    [V,F,4] (`tile_rects` for K1, `legacy_tile_rects` for K4), with the
+    same M and the same layout; within each list and side list the face
+    ids ascend (the card's order is its atomics')."""
+    V, F = rects.shape[:2]
+    dev = rects.device
+    ntx = res // TILE
+    T = ntx * ntx
+    M = BIN_MAX_TILES
+    x0, y0, x1, y1 = rects.long().unbind(-1)
+    w, h = x1 - x0 + 1, y1 - y0 + 1
+    n = torch.where((w > 0) & (h > 0), w * h, torch.zeros_like(w))
+    big = n > M
+    k = torch.arange(M, device=dev)
+    tile = ((y0[..., None] + k // w.clamp(min=1)[..., None]) * ntx
+            + x0[..., None] + k % w.clamp(min=1)[..., None])      # [V,F,M]
+    used = (k < n[..., None]) & ~big[..., None]
+    v_idx = torch.arange(V, device=dev)[:, None, None]
+    f_idx = torch.arange(F, device=dev)[None, :, None]
+    key = ((v_idx * T + tile) * F + f_idx)[used].sort().values
+    counts = torch.bincount(key // max(F, 1), minlength=V * T)
+    work = torch.zeros(bin_capacity(V, F, res)[0], dtype=torch.int32,
+                       device=dev)
+    side_n = big.sum(1)
+    work[V * T:V * T + V] = side_n.to(torch.int32)
+    work[V * T + V + 1:] = torch.cumsum(counts, 0).to(torch.int32)
+    ids = torch.full((bin_capacity(V, F, res)[1],), -1, dtype=torch.int32,
+                     device=dev)
+    ids[:len(key)] = (key % max(F, 1)).to(torch.int32)
+    side = ids[V * F * M:].view(V, F)
+    for v in range(V):
+        f_big = torch.nonzero(big[v])[:, 0]
+        side[v, :len(f_big)] = f_big.to(torch.int32)
+    return Bins(work=work, ids=ids, V=V, F=F, res=res)
+
+
+def _bins_cuda(entry: str, src: torch.Tensor, V: int, F: int,
+               res: int) -> Bins:
+    if res % TILE:
+        raise ValueError(f"raster: res {res} not a multiple of {TILE}")
+    n_work, n_ids = bin_capacity(V, F, res)
+    if max(n_work, n_ids) >= 2 ** 31:
+        raise ValueError(f"raster: {V} views x {F} faces at {res}^2 "
+                         f"overflow the int32 bins")
+    dev = src.device
+    work = torch.empty(n_work, dtype=torch.int32, device=dev)
+    ids = torch.empty(n_ids, dtype=torch.int32, device=dev)
+    kernels.check(getattr(kernels.lib(), entry)(
+        src.data_ptr(), V, F, res, BIN_MAX_TILES, work.data_ptr(),
+        ids.data_ptr(), kernels.stream_ptr(dev)), entry)
+    return Bins(work=work, ids=ids, V=V, F=F, res=res)
+
+
+def bin_pixel_boxes(bbox: torch.Tensor, res: int) -> Bins:
+    """The card's binning of K1's pixel boxes bbox [V,F,4] int32 (CUDA
+    only; its model is bin_faces_plain(tile_rects(bbox, res), res))."""
+    kernels.require_cuda_tensor(bbox, "bbox", torch.int32, 3)
+    if bbox.shape[2] != 4:
+        raise ValueError(f"raster: bbox {tuple(bbox.shape)}")
+    return _bins_cuda("pd_bin_pixel_boxes", bbox, bbox.shape[0],
+                      bbox.shape[1], res)
+
+
+def bin_xy_boxes(tri: torch.Tensor, res: int) -> Bins:
+    """The card's binning of K4's faces tri [V,F,13] f32 by their xy box
+    (CUDA only; its model is bin_faces_plain(legacy_tile_rects(tri, res),
+    res))."""
+    kernels.require_cuda_tensor(tri, "tri", torch.float32, 3)
+    if tri.shape[2] != LEGACY_WIDTH:
+        raise ValueError(f"raster_legacy: tri {tuple(tri.shape)}")
+    return _bins_cuda("pd_bin_xy_boxes", tri, tri.shape[0], tri.shape[1],
+                      res)
+
+
+def _raster_outputs(V: int, res: int, dev) -> RasterOut:
+    return RasterOut(
+        face_id=torch.empty((V, res, res), dtype=torch.int32, device=dev),
+        zbuf=torch.empty((V, res, res), dtype=torch.float32, device=dev),
+        bary=torch.empty((V, res, res, 3), dtype=torch.float32, device=dev))
+
+
+def raster_binned_tiles(cof: torch.Tensor, bbox: torch.Tensor, bins: Bins
+                        ) -> RasterOut:
+    """K1's tile kernel alone, on the bins of bin_pixel_boxes(bbox)."""
+    kernels.require_cuda_tensor(cof, "cof", torch.float32, 3)
+    kernels.require_cuda_tensor(bbox, "bbox", torch.int32, 3)
+    V, F, res = bins.V, bins.F, bins.res
+    if cof.shape != (V, F, 12) or bbox.shape != (V, F, 4):
+        raise ValueError(f"raster: cof {tuple(cof.shape)}, "
+                         f"bbox {tuple(bbox.shape)}, bins of {V} x {F}")
+    if cof.data_ptr() % 16:
+        raise ValueError("raster: cof must be 16-byte aligned")
+    out = _raster_outputs(V, res, cof.device)
+    kernels.check(kernels.lib().pd_raster_tiles(
+        cof.data_ptr(), bbox.data_ptr(), V, F, res, BIN_MAX_TILES,
+        bins.work.data_ptr(), bins.ids.data_ptr(), out.zbuf.data_ptr(),
+        out.face_id.data_ptr(), out.bary.data_ptr(),
+        kernels.stream_ptr(cof.device)), "raster_tiles")
+    return out
 
 
 def _rasterize_coefficients_cuda(cof: torch.Tensor, bbox: torch.Tensor,
                                  res: int) -> RasterOut:
-    kernels.require_cuda_tensor(cof, "cof", torch.float32, 3)
-    kernels.require_cuda_tensor(bbox, "bbox", torch.int32, 3)
-    V, F = cof.shape[:2]
-    if cof.shape[2] != 12 or bbox.shape != (V, F, 4):
-        raise ValueError(f"raster: cof {tuple(cof.shape)}, "
-                         f"bbox {tuple(bbox.shape)}")
-    if res % TILE:
-        raise ValueError(f"raster: res {res} not a multiple of {TILE}")
-    dev = cof.device
-    ntx = res // TILE
-    T = ntx * ntx
-    tb = tile_rects(bbox)
-    lib = kernels.lib()
-    stream = kernels.stream_ptr(dev)
-    counts = torch.zeros(V * T, dtype=torch.int32, device=dev)
-    kernels.check(lib.pd_bin_count(tb.data_ptr(), V, F, ntx,
-                                   counts.data_ptr(), stream), "bin_count")
-    starts = torch.zeros(V * T + 1, dtype=torch.int64, device=dev)
-    torch.cumsum(counts, 0, out=starts[1:])
-    total = int(starts[-1])
-    lists = torch.empty(max(total, 1), dtype=torch.int32, device=dev)
-    cursor = torch.zeros(V * T, dtype=torch.int32, device=dev)
-    kernels.check(lib.pd_bin_fill(tb.data_ptr(), V, F, ntx,
-                                  starts.data_ptr(), cursor.data_ptr(),
-                                  lists.data_ptr(), stream), "bin_fill")
-    zbuf = torch.empty((V, res, res), dtype=torch.float32, device=dev)
-    fid = torch.empty((V, res, res), dtype=torch.int32, device=dev)
-    bary = torch.empty((V, res, res, 3), dtype=torch.float32, device=dev)
-    kernels.check(lib.pd_raster_tiles(cof.data_ptr(), V, F, res,
-                                      starts.data_ptr(), lists.data_ptr(),
-                                      zbuf.data_ptr(), fid.data_ptr(),
-                                      bary.data_ptr(), stream),
-                  "raster_tiles")
+    out = raster_binned_tiles(cof, bbox, bin_pixel_boxes(bbox, res))
     kernels.LAUNCHES["raster_binned"] += 1
-    return RasterOut(face_id=fid, zbuf=zbuf, bary=bary)
+    return out
 
 
 def rasterize_coefficients(cof: torch.Tensor, bbox: torch.Tensor,
@@ -257,10 +405,7 @@ def rasterize_binned(verts_ndc: torch.Tensor, verts_depth: torch.Tensor,
     return rasterize_coefficients(cof, bbox, res)
 
 
-# ---- K4: the legacy full-stream rasterizer -----------------------------
-
-LEGACY_WIDTH = 13       # ax ay bx by cx cy z0 z1 z2 x0 y0 x1 y1
-
+# ---- K4: the legacy rasterizer -----------------------------------------
 
 def prepare_legacy(verts_ndc: torch.Tensor, verts_depth: torch.Tensor,
                    faces: torch.Tensor, res: int,
@@ -285,16 +430,15 @@ def prepare_legacy(verts_ndc: torch.Tensor, verts_depth: torch.Tensor,
                       tri_xy.amax(2)], -1).contiguous()
 
 
-def rasterize_legacy_plain(tri: torch.Tensor, res: int) -> RasterOut:
-    """Plain torch version of K4, in the kernel's order of operations."""
+def edge_functions(tri: torch.Tensor):
+    """K4's per-pixel arithmetic on tri [V,F,13], in the kernel's order of
+    operations: (the `evaluate` of _zbuffer_plain, |area| > 1e-12 [V,F])."""
     ax, ay, bx, by, cx, cy, z0, z1, z2 = [
         tri[..., i] for i in range(9)]
     area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
     ok = area.abs() > 1e-12
     inv = torch.where(ok, 1.0 / torch.where(ok, area, torch.ones_like(area)),
                       torch.zeros_like(area))
-    bbox = face_pixel_bbox(tri[..., :6].reshape(tri.shape[:2] + (3, 2)), ok,
-                           res).contiguous()
 
     def evaluate(v, c0, n, xs, ys):
         def g(a):
@@ -310,25 +454,37 @@ def rasterize_legacy_plain(tri: torch.Tensor, res: int) -> RasterOut:
         inside = (l0 >= 0) & (l1 >= 0) & (l2 >= 0) & g(ok) & (zk > 0)
         return l0, l1, l2, zk, inside
 
+    return evaluate, ok
+
+
+def rasterize_legacy_plain(tri: torch.Tensor, res: int) -> RasterOut:
+    """Plain torch version of K4, in the kernel's order of operations."""
+    evaluate, ok = edge_functions(tri)
+    bbox = face_pixel_bbox(tri[..., :6].reshape(tri.shape[:2] + (3, 2)), ok,
+                           res).contiguous()
     return _zbuffer_plain(evaluate, bbox, res)
 
 
-def _rasterize_legacy_cuda(tri: torch.Tensor, res: int) -> RasterOut:
+def raster_legacy_tiles(tri: torch.Tensor, bins: Bins) -> RasterOut:
+    """K4's tile kernel alone, on the bins of bin_xy_boxes(tri)."""
     kernels.require_cuda_tensor(tri, "tri", torch.float32, 3)
-    V, F = tri.shape[:2]
-    if tri.shape[2] != LEGACY_WIDTH:
-        raise ValueError(f"raster_legacy: tri {tuple(tri.shape)}")
-    if res % TILE:
-        raise ValueError(f"raster_legacy: res {res} not a multiple of {TILE}")
-    dev = tri.device
-    zbuf = torch.empty((V, res, res), dtype=torch.float32, device=dev)
-    fid = torch.empty((V, res, res), dtype=torch.int32, device=dev)
-    bary = torch.empty((V, res, res, 3), dtype=torch.float32, device=dev)
+    V, F, res = bins.V, bins.F, bins.res
+    if tri.shape != (V, F, LEGACY_WIDTH):
+        raise ValueError(f"raster_legacy: tri {tuple(tri.shape)}, bins of "
+                         f"{V} x {F}")
+    out = _raster_outputs(V, res, tri.device)
     kernels.check(kernels.lib().pd_raster_legacy(
-        tri.data_ptr(), V, F, res, zbuf.data_ptr(), fid.data_ptr(),
-        bary.data_ptr(), kernels.stream_ptr(dev)), "raster_legacy")
+        tri.data_ptr(), V, F, res, BIN_MAX_TILES, bins.work.data_ptr(),
+        bins.ids.data_ptr(), out.zbuf.data_ptr(), out.face_id.data_ptr(),
+        out.bary.data_ptr(), kernels.stream_ptr(tri.device)),
+        "raster_legacy")
+    return out
+
+
+def _rasterize_legacy_cuda(tri: torch.Tensor, res: int) -> RasterOut:
+    out = raster_legacy_tiles(tri, bin_xy_boxes(tri, res))
     kernels.LAUNCHES["raster_legacy"] += 1
-    return RasterOut(face_id=fid, zbuf=zbuf, bary=bary)
+    return out
 
 
 def rasterize_legacy(tri: torch.Tensor, res: int) -> RasterOut:

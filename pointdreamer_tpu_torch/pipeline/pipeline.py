@@ -96,6 +96,8 @@ class Pipeline:
         dev = resolve_device(device)
         if cfg.geo_from == "POCO" and cfg.poco_checkpoint:
             raise NotImplementedError("POCO geometry: a later port slice")
+        if cfg.ddnm_quant_int8:
+            raise NotImplementedError("w8a8 DDNM: a later port slice")
         logger = get_logger(log_file)
         rig = make_camera_rig(cfg.view_num, cfg.cam_distance, cfg.cam_res,
                               cfg.cam_fov_deg, cfg.camera_distribution,

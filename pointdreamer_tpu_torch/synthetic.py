@@ -79,3 +79,52 @@ def write_cube_inputs(out_dir: str, n_div: int = 40, n_points: int = 30000,
     ply = os.path.join(out_dir, "cube.ply")
     pio.save_colored_pc_ply(pts, col, ply)
     return ply
+
+
+def raster_edge_scene(n_views: int, res: int, n_small: int = 2000,
+                      seed: int = 0):
+    """A rasterizer scene of the cases a face binning has to get right, in
+    NDC, every face on its own three vertices: (ndc [V,N,2] f32, depth
+    [V,N] f32, faces [F,3] int32).  Per view: `n_small` random triangles
+    of 4-20 pixels in both windings, a screen-filling quad (two faces,
+    deepest, sharing a diagonal of exact z ties), 24 big triangles of
+    32-200 pixels (around the binning's M tiles and far above it), a long
+    zero-area sliver and a triangle with a NaN corner; the big faces and
+    the quad face the camera (negative signed area, kept by culling).  The
+    last view holds every face off screen."""
+    rng = np.random.default_rng(seed)
+    px = 2.0 / res                                 # one pixel in NDC
+
+    def tris(n, lo, hi):
+        c = rng.uniform(-0.9, 0.9, (n_views, n, 1, 2))
+        size = rng.uniform(lo, hi, (n_views, n, 1, 1)) * px
+        ang = rng.uniform(0, 2 * np.pi, (n_views, n, 1, 1)) + np.array(
+            [0.0, 2.1, 4.2])[None, None, :, None]
+        return c + np.concatenate([np.cos(ang), np.sin(ang)], -1) * size
+
+    small = tris(n_small, 4, 20)
+    small[:, 1::2] = small[:, 1::2, ::-1]             # both windings
+    big = tris(24, 16, 100)
+    quad = np.broadcast_to(np.array(
+        [[[-1, -1], [-1, 1], [1, 1]], [[-1, -1], [1, 1], [1, -1]]],
+        np.float64), (n_views, 2, 3, 2))
+    sliver = np.broadcast_to(np.array(               # x == y: area 0
+        [[[-0.8, -0.8], [0.8, 0.8], [0.1, 0.1]]]), (n_views, 1, 3, 2))
+    nan = np.broadcast_to(np.array(
+        [[[0.1, 0.1], [np.nan, 0.2], [0.2, 0.3]]]), (n_views, 1, 3, 2))
+    tri = np.concatenate([small, big, quad, sliver, nan], 1)
+    e1, e2 = tri[..., 1, :] - tri[..., 0, :], tri[..., 2, :] - tri[..., 0, :]
+    back = e1[..., 0] * e2[..., 1] - e1[..., 1] * e2[..., 0] > 0
+    back[:, :n_small] = False                         # keep both windings
+    tri[back] = tri[back][:, ::-1]
+    tri[-1] += 10.0                                   # an empty view
+    F = tri.shape[1]
+    depth = np.concatenate([rng.uniform(0.5, 3.0, (n_views, n_small)),
+                            rng.uniform(1.0, 4.0, (n_views, 24)),
+                            np.full((n_views, 2), 5.0),
+                            np.full((n_views, 2), 2.0)], 1)
+    depth = depth[..., None] + rng.uniform(-0.1, 0.1, (n_views, F, 3))
+    depth[:, n_small + 24:n_small + 26] = 5.0         # the quad's one plane
+    faces = np.arange(F * 3, dtype=np.int32).reshape(F, 3)
+    return (tri.reshape(n_views, F * 3, 2).astype(np.float32),
+            depth.reshape(n_views, F * 3).astype(np.float32), faces)

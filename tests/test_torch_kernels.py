@@ -38,3 +38,15 @@ def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
     with open(csrc / "tc.cuh", "a") as f:
         f.write("\n// edited\n")
     assert kernels._source_hash() != before
+
+
+def test_library_name_follows_the_binning_header(tmp_path, monkeypatch):
+    # K1 and K4 include csrc/raster_bin.cuh, the face binning they share:
+    # editing it must give a new library too
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    monkeypatch.setattr(kernels, "CSRC", str(csrc))
+    before = kernels._source_hash()
+    with open(csrc / "raster_bin.cuh", "a") as f:
+        f.write("\n// edited\n")
+    assert kernels._source_hash() != before

@@ -368,3 +368,26 @@ def test_slice_without_cached_mesh_matches_jax_pipeline(tmp_path,
     assert len(own["faces"]) == len(got["faces"])
     atlas = tio.load_rgb(objs["torch"][:-4] + ".png")
     assert atlas.shape == (128, 128, 3) and (atlas.max(-1) > 0).mean() > 0.3
+
+
+def test_quant_int8_is_refused(monkeypatch):
+    # the port has no w8a8 UNet yet: ddnm_quant_int8 raises before any
+    # inpainter is built, where the JAX package would build the w8a8 one;
+    # ddnm_quant_static alone changes nothing, as in the JAX package
+    import pointdreamer_tpu_torch.models.diffusion as tdiff
+
+    built = []
+
+    def spy(*a, **kw):
+        built.append(kw)
+        return "inpainter"
+
+    monkeypatch.setattr(tdiff, "load_inpainter", spy)
+    cfg = tload(os.path.join(REPO, "configs", "default.yaml"))
+    cfg.ddnm_quant_int8, cfg.ddnm_quant_static = True, True
+    with pytest.raises(NotImplementedError, match="w8a8"):
+        TPipeline.create(cfg, device="cpu", allow_random_diffusion=True)
+    assert built == []
+    cfg.ddnm_quant_int8 = False
+    pipe = TPipeline.create(cfg, device="cpu", allow_random_diffusion=True)
+    assert pipe.inpainter == "inpainter" and len(built) == 1
