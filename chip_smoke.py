@@ -75,6 +75,39 @@ Phases (each prints its own lines; any failure exits non-zero):
                 256^2, batch 4: 3 steps with finite losses and gradients,
                 every parameter moved, K2 launched 16 times per step; ms
                 per step and peak memory.
+  7. POCO     : the occupancy network (models/occupancy).  (a) Training at
+                the reference width (hidden 64) with the training CLI's
+                other defaults: one loss + backward on the card and on the
+                CPU from the same weights and batch (losses agree, every
+                gradient present and finite, each entry and each tensor's
+                norm within 1e-3 of the CPU's plus four times the CPU's
+                fp32 rounding, measured against its fp64 gradient, plus
+                1e-6 of the largest gradient); the CUDA-graph step
+                fit replays against the eager step (23 steps each, losses
+                within 1e-6); then fit, batch 4 of 1,024 points and 512
+                queries, lr 1e-3, 36 x 50 steps with cosine decay (the
+                CLI's 6 x 50 leaves the network at the class prior): the
+                last epoch's mean loss below the first's, validation OA
+                above the all-outside prior, everything finite; ms per
+                step (eager and captured) and peak memory.  (b)
+                Pipeline.create(configs/default.yaml, device="cuda") with
+                poco_checkpoint = (a)'s checkpoint and the seeded random
+                552.8M UNet, one timed recon_one_textured_mesh of the
+                cloud alone (build/smoke/in_ply/cube.ply, switch off),
+                geometry warnings raised as errors (an SPR or hoppe
+                fallback fails), after a warm-up of the geometry alone:
+                8,000 to 10,000 faces, launches K1 >= 3, K2 = 1600, K3 =
+                100, phase 4's output checks; the card's field at 4,096
+                grid queries against the port's CPU field from the same
+                checkpoint and draws (latents of the first cover pass):
+                within 1e-4 on average, and within 1e-3 wherever both
+                devices attend to the same 64 points (CUDA's and the CPU's
+                topk break distance ties apart: >= 99% of the queries);
+                the POCO sub-stage seconds, the unwrap thread's own wall
+                and CPU time, and the mesh's distance to the cube beside
+                phase 5's.  Then the same shape once more with the first
+                run's mesh and unwrap cached (K2 = 1600): its inpaint
+                without the host unwrap beside it.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -350,6 +383,23 @@ def check_outputs(obj: str, cfg, what: str) -> None:
           f"views within {worst:.4g} (bound 1/255)")
     if n_known == 0 or not worst <= 1.0 / 255 + 1e-6:
         fail(f"DDNM changed known pixels by {worst}")
+
+
+def mesh_vs_cube(v_np, f_np, xyz_n):
+    """Each vertex's distance to the surface of the cloud's bounding box
+    (the cube), and the share of faces whose normal points away from its
+    centre."""
+    import numpy as np
+
+    lo, hi = xyz_n.min(0), xyz_n.max(0)
+    d_out = np.maximum(np.maximum(lo - v_np, v_np - hi), 0.0)
+    d_in = np.minimum(v_np - lo, hi - v_np).min(1)
+    dist = np.where(d_out.max(1) > 0, np.linalg.norm(d_out, axis=1), d_in)
+    tri = v_np[f_np]
+    nrm = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    outward = float(((nrm * (tri.mean(1) - (lo + hi) / 2)).sum(1) > 0)
+                    .mean())
+    return dist, outward
 
 
 def pixel_box_tests(ndc, faces, bbox, res: int) -> int:
@@ -778,6 +828,309 @@ def train_full_width(dev) -> None:
           f"gradients and moved")
 
 
+POCO_EPOCHS = 36
+
+
+def train_poco(dev, work: str) -> str:
+    """Phase 7 (a): POCO at hidden 64, card against CPU for one step, the
+    captured step against the eager one, then fit; returns the
+    checkpoint's path."""
+    import numpy as np
+    import torch
+
+    from pointdreamer_tpu_torch.models.occupancy import train as otrain
+    from pointdreamer_tpu_torch.models.occupancy.convert import init_params
+    from pointdreamer_tpu_torch.models.occupancy.network import \
+        network_from_tree
+    from pointdreamer_tpu_torch.models.occupancy.synthetic import (
+        batch_iterator, make_sample, random_shape)
+
+    tree = init_params(seed=0, hidden=64)
+    batch = next(batch_iterator(1, 4, 1024, 512, 0.005))
+    losses, grads = {}, {}
+    for name, d, dt in (("cpu", torch.device("cpu"), torch.float32),
+                        ("cpu, fp64", torch.device("cpu"), torch.float64),
+                        ("card", dev, torch.float32)):
+        net = network_from_tree(tree, device=d).to(dt)
+        t0 = time.perf_counter()
+        loss, acc = otrain.loss_fn(net, *(
+            torch.as_tensor(a, device=d).to(dt) if a.dtype.kind == "f"
+            else torch.as_tensor(a, device=d) for a in batch))
+        loss.backward()
+        losses[name] = loss.item()
+        print(f"[poco] hidden 64, batch 4 x 1024 points, 512 queries, one "
+              f"loss + backward on the {name}: loss {losses[name]:.7f} in "
+              f"{time.perf_counter() - t0:.3f} s (first call)")
+        grads[name] = {n: p.grad for n, p in net.named_parameters()}
+    if not abs(losses["card"] - losses["cpu"]) <= 1e-5 * losses["cpu"]:
+        fail(f"POCO losses differ: card {losses['card']} cpu {losses['cpu']}")
+    # every entry of every gradient, held relative to its own tensor:
+    # |card - cpu| <= 1e-3 max |g| + 4 n + f, n the tensor's fp32 rounding
+    # (the CPU's largest fp32 error against its fp64 gradient) and f 1e-6
+    # of the largest gradient (n is one sample: a scalar's can be small by
+    # chance); and each tensor whole, ||card - cpu|| <= 1e-3 ||g|| +
+    # 4 ||cpu - fp64|| + f, so that a zeroed or doubled tensor fails
+    # unless its norm is within that bound: a bias whose true gradient is
+    # zero, one whose terms cancel (an instance-norm bias of the FKAConv at
+    # the 47-point level), a scalar under f
+    top = max(float(g.abs().max()) for g in grads["cpu"].values())
+    n_entries = n_unchecked = 0
+    worst, worst_name, worst_l2, worst_l2_name = 0.0, "", 0.0, ""
+    rounding = []
+    for n, gc in grads["cpu"].items():
+        gk = grads["card"][n]
+        if gk is None or not bool(torch.isfinite(gk).all()):
+            fail(f"card POCO gradient of {n} is "
+                 f"{'None' if gk is None else 'not finite'}")
+        gc, gk = gc.double(), gk.double().cpu()
+        err64 = gc - grads["cpu, fp64"][n]
+        g_max = float(gc.abs().max())
+        lim = 1e-3 * g_max + 4 * float(err64.abs().max()) + 1e-6 * top
+        d = (gk - gc).abs()
+        if not float(d.max()) <= lim:
+            fail(f"card POCO gradient of {n} differs from the CPU's by "
+                 f"{float(d.max())} (bound {lim}: its max |g| {g_max}, its "
+                 f"fp32 rounding {float(err64.abs().max())}; "
+                 f"{int((d > lim).sum())} entries over)")
+        g_l2, n_l2 = float(gc.norm()), float(err64.norm())
+        lim_l2 = 1e-3 * g_l2 + 4 * n_l2 + 1e-6 * top
+        if not float(d.norm()) <= lim_l2:
+            fail(f"card POCO gradient of {n} differs from the CPU's by "
+                 f"{float(d.norm())} in norm (bound {lim_l2}: its norm "
+                 f"{g_l2}, its fp32 rounding's {n_l2})")
+        # entries the gate cannot tell from zero or from twice their value
+        n_entries += gc.numel()
+        n_unchecked += int((gc.abs() <= lim).sum())
+        if g_l2 <= lim_l2:
+            rounding.append(f"{n} (norm {g_l2 / top:.3g} of the largest "
+                            f"gradient, its fp32 rounding's {n_l2 / top:.3g})")
+            continue
+        if float(d.max()) / lim > worst:
+            worst, worst_name = float(d.max()) / lim, n
+        if float(d.norm()) / lim_l2 > worst_l2:
+            worst_l2, worst_l2_name = float(d.norm()) / lim_l2, n
+    print(f"[poco] card vs CPU: loss rel diff "
+          f"{abs(losses['card'] - losses['cpu']) / losses['cpu']:.3g}; "
+          f"{len(grads['cpu'])} gradients all present and finite; every "
+          f"entry within 1e-3 of its tensor's max |g| + 4 x the tensor's "
+          f"fp32 rounding + 1e-6 of the largest gradient (worst max |d| / "
+          f"bound {worst:.3g}, {worst_name}), "
+          f"every tensor in norm (worst {worst_l2:.3g}, {worst_l2_name}); "
+          f"{n_unchecked} of {n_entries} entries at most their bound in "
+          f"size; tensors that the gate cannot tell from zero: {rounding}")
+    del grads
+
+    # the captured step (what fit replays on the card) against the eager
+    # one: 23 steps each from the same weights on the same batches; ms per
+    # step on resident batches
+    it = batch_iterator(2, 4, 1024, 512, 0.005)
+    bs = [[torch.as_tensor(a, device=dev) for a in next(it)]
+          for _ in range(23)]
+    runs = {}
+    for name in ("eager", "captured"):
+        net = network_from_tree(tree, device=dev)
+        opt = otrain.AdamCosine(net.parameters(), 1e-3, 100)
+        step = (otrain.CapturedStep(net, opt, *bs[0]) if name == "captured"
+                else lambda *b, n=net, o=opt: otrain.train_step(n, o, *b))
+        losses = [float(step(*b)[0]) for b in bs[:3]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in bs[3:]:
+            step(*b)
+        torch.cuda.synchronize()
+        runs[name] = (losses, (time.perf_counter() - t0) / 20 * 1e3,
+                      [p.detach() for p in net.parameters()])
+    d_loss = max(abs(a - b) / a for a, b in zip(runs["eager"][0],
+                                                runs["captured"][0]))
+    diffs = torch.cat([(a - b).abs().flatten() for a, b in
+                       zip(runs["eager"][2], runs["captured"][2])])
+    print(f"[poco] train_step on resident batches: eager "
+          f"{runs['eager'][1]:.2f} ms, captured (CUDA graph) "
+          f"{runs['captured'][1]:.2f} ms per step; after 23 steps each the "
+          f"losses differ by {d_loss:.3g} (relative), the parameters by at "
+          f"most {float(diffs.max()):.3g}, "
+          f"{int((diffs > 1e-6).sum())} of {diffs.numel()} by more than 1e-6")
+    if not (d_loss <= 1e-6 and float(diffs.max()) <= 2 * 1e-3 * 23
+            and float((diffs > 1e-6).float().mean()) <= 5e-3):
+        fail("the captured POCO step differs from the eager one")
+    del runs, bs
+
+    # fit, the training CLI's defaults at hidden 64 but for the length:
+    # 36 x 50 steps (at its 6 x 50 the network stays at the class prior,
+    # all outside, and the cube's field has no surface)
+    ckpt = os.path.join(work, "poco_hidden64.pkl")
+    net = network_from_tree(tree, device=dev)
+    rng = np.random.default_rng(123)
+    val = make_sample(random_shape(rng), rng, 1024, 512, 0.005)
+    val = tuple(np.stack([v]) for v in val)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, hist = otrain.fit(net, batch_iterator(0, 4, 1024, 512, 0.005),
+                         epochs=POCO_EPOCHS, steps_per_epoch=50, lr=1e-3,
+                         checkpoint_path=ckpt, val_batch=val,
+                         checkpoint_every=POCO_EPOCHS, lr_decay=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps = POCO_EPOCHS * 50
+    print(f"[poco] fit {POCO_EPOCHS} x 50 steps: losses "
+          f"{[round(h['loss'], 4) for h in hist]}; validation OA "
+          f"{[round(h['OA'], 3) for h in hist]}; {dt:.3f} s, "
+          f"{dt / steps * 1e3:.2f} ms per step (host batches and validation "
+          f"included), peak memory {peak / 2**30:.3f} GiB")
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        fail(f"POCO losses {hist}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        fail(f"POCO's last epoch loss {hist[-1]['loss']} is not below the "
+             f"first's {hist[0]['loss']}")
+    prior = float(1 - val[2].mean())        # OA of "all outside"
+    if not hist[-1]["OA"] > prior + 0.05:
+        fail(f"POCO's validation OA {hist[-1]['OA']} is not above the class "
+             f"prior's {prior}")
+    if not all(bool(torch.isfinite(p).all()) for p in net.parameters()):
+        fail("POCO parameters not finite after fit")
+    return ckpt
+
+
+def poco_default_config(dev, ckpt: str, ply_alone: str, work: str,
+                        spr_dist: float) -> None:
+    """Phase 7 (b): configs/default.yaml whole, geometry from POCO."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from pointdreamer_tpu_torch import io as pio
+    from pointdreamer_tpu_torch import kernels
+    from pointdreamer_tpu_torch.config import load_config
+    from pointdreamer_tpu_torch.log import StageTimer
+    from pointdreamer_tpu_torch.models.occupancy import network as onet
+    from pointdreamer_tpu_torch.models.occupancy.train import load_checkpoint
+    from pointdreamer_tpu_torch.ops.knn import knn
+    from pointdreamer_tpu_torch.pipeline.geometry import (GRID_HI, GRID_LO,
+                                                          normalize_points,
+                                                          reconstruct_mesh)
+    from pointdreamer_tpu_torch.pipeline.pipeline import Pipeline
+
+    cfg = load_config(os.path.join(REPO, "configs", "default.yaml"))
+    cfg.poco_checkpoint = ckpt
+    cfg.output_path = os.path.join(work, "out_poco")
+    pipe = Pipeline.create(cfg, device="cuda", allow_random_diffusion=True)
+    if pipe.poco_apply is None:
+        fail("Pipeline.create built no POCO field")
+    n_params = sum(p.numel() for p in pipe.inpainter.model.parameters())
+    if n_params != 552_814_086:
+        fail(f"UNet has {n_params} parameters, not 552,814,086")
+    # warm-up of the geometry alone: the first calls at the encode's and
+    # the field's shapes (the texture path is warm from phases 4-5)
+    xyz_a, _ = pio.read_ply_xyzrgb(ply_alone)
+    xyz_n, _, _ = normalize_points(xyz_a)
+    t0 = time.perf_counter()
+    reconstruct_mesh(xyz_n, "POCO", cfg.grid_res, cfg.target_face_num,
+                     poco_apply=pipe.poco_apply, device=dev)
+    torch.cuda.synchronize()
+    print(f"[poco] geometry warm-up {time.perf_counter() - t0:.3f} s")
+    timer = StageTimer(None, sync=True)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with warnings.catch_warnings():
+        # an SPR or hoppe fallback of the geometry stage fails the phase
+        warnings.filterwarnings(
+            "error", module=r"pointdreamer_tpu_torch\.pipeline\.geometry")
+        t0 = time.perf_counter()
+        obj = pipe.recon_one_textured_mesh(ply_alone, timer=timer)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    stages = {k: round(v, 4) for k, v in timer.times.items()}
+    print(f"[poco] timed run {total:.3f} s stages {json.dumps(stages)}; "
+          f"peak memory {peak / 2**30:.2f} GiB")
+    print("[poco] geometry sub-stages (s): " + ", ".join(
+        f"{k[9:]} {v:.4f}" for k, v in stages.items()
+        if k.startswith("geometry.")))
+    print(f"[poco] launches {json.dumps(launches)}")
+    if launches["attention_qkv"] != 1600:
+        fail(f"K2 launched {launches['attention_qkv']} times, not 1600")
+    if launches["segment_sum"] != 100:
+        fail(f"K3 launched {launches['segment_sum']} times, not 100")
+    if launches["raster_binned"] < 3:
+        fail(f"K1 launched {launches['raster_binned']} times, not >= 3")
+    check_outputs(obj, cfg, "poco")
+
+    geo = pio.load_obj(os.path.join(os.path.dirname(os.path.dirname(obj)),
+                                    "geo", "untextured.obj"))
+    v_np, f_np = geo["vertices"].astype(np.float32), geo["faces"]
+    dist, outward = mesh_vs_cube(v_np, f_np, xyz_n)
+    print(f"[poco] mesh {len(v_np)} vertices {len(f_np)} faces; distance to "
+          f"the cube mean {dist.mean():.5f} p95 "
+          f"{np.percentile(dist, 95):.5f} (phase 5's SPR mesh: mean "
+          f"{spr_dist:.5f}); outward faces {outward:.5f}")
+    if not 0.8 * cfg.target_face_num <= len(f_np) <= cfg.target_face_num:
+        fail(f"{len(f_np)} faces, not within 0.8-1.0 x {cfg.target_face_num}")
+
+    # the same shape again, in a fresh output directory that holds the
+    # first run's geo/ (mesh and unwrap): geometry reads the mesh and the
+    # unwrap thread its cache, so inpaint runs with no host unwrap beside
+    # it, in the same process and state as the first run
+    geo_dir = os.path.join(os.path.dirname(os.path.dirname(obj)), "geo")
+    pipe.cfg.output_path = os.path.join(work, "out_poco_unwrapped")
+    shutil.copytree(geo_dir, os.path.join(pipe.cfg.output_path,
+                                          os.path.basename(os.path.dirname(
+                                              geo_dir)), "geo"))
+    timer_b = StageTimer(None, sync=True)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pipe.recon_one_textured_mesh(ply_alone, timer=timer_b)
+    torch.cuda.synchronize()
+    total_b = time.perf_counter() - t0
+    if kernels.LAUNCHES["attention_qkv"] != 1600:
+        fail(f"K2 launched {kernels.LAUNCHES['attention_qkv']} times in the "
+             "run with the unwrap cached, not 1600")
+    print(f"[poco] again with the mesh and its unwrap cached: {total_b:.3f} s,"
+          f" inpaint {timer_b.times['inpaint']:.4f} s (first run "
+          f"{stages['inpaint']:.4f} s, its unwrap thread "
+          f"{stages.get('unwrap.thread', 0.0):.4f} s wall, "
+          f"{stages.get('unwrap.thread_cpu', 0.0):.4f} s CPU)")
+
+    # the card's field against the CPU's: the same checkpoint, the same
+    # draws (make_poco_field's noise, then the first cover pass).  The two
+    # devices compute the same fp32 distances, but CUDA's and the CPU's
+    # topk break their ties (frequent: |q|^2 - 2 q.r + |r|^2 rounds at
+    # |q|^2's scale) apart, so a query may attend to another 64-point set
+    params = load_checkpoint(ckpt)["params"]
+    axis = np.linspace(GRID_LO, GRID_HI, 16, dtype=np.float32)
+    q = np.stack(np.meshgrid(axis, axis, axis, indexing="ij"),
+                 -1).reshape(-1, 3)
+    fields, sets = {}, {}
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        net = onet.network_from_tree(params, cfg.network_decoder, d)
+        rng = np.random.default_rng(42)
+        pts = xyz_n + rng.normal(0, 0.005, xyz_n.shape).astype(np.float32)
+        pts = torch.as_tensor(pts, device=d)
+        qt = torch.as_tensor(q, device=d)
+        t0 = time.perf_counter()
+        lat = onet.encode_latents(net, pts, cover=1, rng=rng)
+        fields[name] = onet.query_occupancy(net, lat, pts, qt).cpu().numpy()
+        sets[name] = np.sort(knn(qt, pts, 64)[1].cpu().numpy(), 1)
+        print(f"[poco] field at {len(q)} grid queries on the {name} (first "
+              f"cover pass, 10 subsets): {time.perf_counter() - t0:.3f} s, "
+              f"{int((fields[name] < 0).sum())} inside")
+    d_f = np.abs(fields["card"] - fields["cpu"])
+    same = (sets["card"] == sets["cpu"]).all(1)
+    worst = np.argsort(-d_f)[:4]
+    print(f"[poco] card vs CPU field: mean |d| {d_f.mean():.3g} (bound "
+          f"1e-4); {int(same.sum())} of {len(q)} queries with the same 64 "
+          f"points (bound 99%), max |d| there {d_f[same].max():.3g} (bound "
+          f"1e-3), elsewhere {d_f[~same].max(initial=0.0):.3g}; largest "
+          f"|d| {[(round(float(d_f[i]), 6), bool(same[i])) for i in worst]}")
+    if not (d_f.mean() <= 1e-4 and same.mean() >= 0.99
+            and d_f[same].max() <= 1e-3):
+        fail("the card's POCO field differs from the CPU's")
+    del pipe
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1101,14 +1454,8 @@ def main() -> int:
     nf = len(f_np)
     xyz_a, _ = pio.read_ply_xyzrgb(ply_alone)
     xyz_n, _, _ = normalize_points(xyz_a)
-    lo, hi = xyz_n.min(0), xyz_n.max(0)
-    d_out = np.maximum(np.maximum(lo - v_np, v_np - hi), 0.0)
-    d_in = np.minimum(v_np - lo, hi - v_np).min(1)
-    dist = np.where(d_out.max(1) > 0, np.linalg.norm(d_out, axis=1), d_in)
-    tri = v_np[f_np]
-    nrm = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
-    outward = float(((nrm * (tri.mean(1) - (lo + hi) / 2)).sum(1) > 0)
-                    .mean())
+    dist, outward = mesh_vs_cube(v_np, f_np, xyz_n)
+    spr_dist = float(dist.mean())
     print(f"[geometry] mesh {len(v_np)} vertices {nf} faces; distance to "
           f"the cube mean {dist.mean():.5f} p95 "
           f"{np.percentile(dist, 95):.5f}; outward faces {outward:.5f}")
@@ -1154,6 +1501,11 @@ def main() -> int:
     # ---- 6. training -------------------------------------------------
     train_cli_model(dev)
     train_full_width(dev)
+    torch.cuda.empty_cache()
+
+    # ---- 7. POCO: training, then default.yaml from the cloud alone ----
+    ckpt = train_poco(dev, work)
+    poco_default_config(dev, ckpt, ply_alone, work, spr_dist)
 
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

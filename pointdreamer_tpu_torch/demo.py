@@ -3,8 +3,9 @@
     python -m pointdreamer_tpu_torch.demo --config configs/default.yaml \\
         --pc_file <dir>/cube.ply
 
-The mesh is reconstructed from the cloud (screened Poisson), unless a
-cached `<dir>/cube_untextured_mesh.obj` sits beside it.  With
+The mesh is reconstructed from the cloud (by POCO when the config names a
+`poco_checkpoint`, else by screened Poisson), unless a cached
+`<dir>/cube_untextured_mesh.obj` sits beside it.  With
 PD_USE_PALLAS_RASTER=1 in the environment the project and optimize stages
 rasterize on K4 instead of K1, as the JAX package's switch does.  Writes
 output/<name>_<cfgtag>/models/model_normalized.{obj,mtl,png}.

@@ -58,6 +58,15 @@ class StageTimer:
             if self.logger:
                 self.logger.info(f"{name}: {dt:.3f} s")
 
+    def record(self, name: str, seconds: float):
+        """Adds a time measured elsewhere (a host thread's own wall or CPU
+        time) under `name`, with no device sync."""
+        self.times[name] = self.times.get(name, 0.0) + seconds
+        if name not in self.order:
+            self.order.append(name)
+        if self.logger:
+            self.logger.info(f"{name}: {seconds:.3f} s")
+
     def total(self) -> float:
         """Sum of the top-level stages ('a.b' is a part of stage 'a')."""
         return sum(v for k, v in self.times.items() if "." not in k)

@@ -64,21 +64,32 @@ class AdamCosine:
         decayed = f32(1 - self.alpha) * cos + f32(self.alpha)
         return float(f32(self.lr) * decayed)
 
+    def scalars(self) -> Tuple[float, float, float]:
+        """The next update's bias corrections and signed rate:
+        (1 - b1^(count+1), 1 - b2^(count+1), -lr_count)."""
+        n = np.float32(self.count + 1)
+        return (float(np.float32(1) - np.float32(self.b1) ** n),
+                float(np.float32(1) - np.float32(self.b2) ** n),
+                -self.learning_rate(self.count))
+
     @torch.no_grad()
     def step(self, grads: Optional[Sequence[torch.Tensor]] = None) -> None:
         """One update from `grads` (default: each parameter's .grad)."""
         if grads is None:
             grads = [p.grad for p in self.params]
-        n = self.count + 1
-        bc1 = float(np.float32(1) - np.float32(self.b1) ** np.float32(n))
-        bc2 = float(np.float32(1) - np.float32(self.b2) ** np.float32(n))
-        step = -self.learning_rate(self.count)
+        self.apply(grads, *self.scalars())
+        self.count += 1
+
+    @torch.no_grad()
+    def apply(self, grads, bc1, bc2, step) -> None:
+        """The update itself, the count left alone.  The three scalars are
+        floats, or 0-dim tensors on the parameters' device that a captured
+        CUDA graph reads at each replay."""
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
             mu.copy_((1 - self.b1) * g + self.b1 * mu)
             nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
             upd = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             p.add_(step * upd)
-        self.count = n
 
 
 def train_epoch(model, opt: AdamCosine, generator: torch.Generator,

@@ -142,18 +142,14 @@ def refine_vertices_bisection(field_fn, verts: np.ndarray,
     pb2 = np.where(swap[:, None], pa, pb)
     pa, pb = pa2.astype(np.float32), pb2.astype(np.float32)
 
-    n = len(pa)
-    out = np.empty((n, 3), np.float32)
-    for i in range(0, n, chunk):
-        end = min(i + chunk, n)
-        a = torch.as_tensor(np.pad(pa[i:end], ((0, chunk - (end - i)),
-                                               (0, 0))), device=device)
-        b = torch.as_tensor(np.pad(pb[i:end], ((0, chunk - (end - i)),
-                                               (0, 0))), device=device)
+    out = np.empty((len(pa), 3), np.float32)
+    for i in range(0, len(pa), chunk):
+        a = torch.as_tensor(pa[i:i + chunk], device=device)
+        b = torch.as_tensor(pb[i:i + chunk], device=device)
         for _ in range(iterations):
             mid = (a + b) * 0.5
             inside = (field_fn(mid) < 0.0)[:, None]
             a = torch.where(inside, mid, a)
             b = torch.where(inside, b, mid)
-        out[i:end] = ((a + b) * 0.5).cpu().numpy()[: end - i]
+        out[i:i + chunk] = ((a + b) * 0.5).cpu().numpy()
     return out

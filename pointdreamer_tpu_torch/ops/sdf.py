@@ -314,11 +314,9 @@ def eval_sdf_on_grid_banded(sdf_fn, points: np.ndarray, res: int,
     q = coords[flat_ids]
     vals = np.empty(len(q), np.float32)
     for i in range(0, len(q), chunk):
-        end = min(i + chunk, len(q))
-        c = np.zeros((chunk, 3), np.float32)
-        c[: end - i] = q[i:end]
-        vals[i:end] = sdf_fn(torch.as_tensor(c, device=device)
-                             ).cpu().numpy()[: end - i]
+        vals[i:i + chunk] = sdf_fn(torch.as_tensor(q[i:i + chunk],
+                                                   device=device)
+                                   ).cpu().numpy()
     out = far.astype(np.float32).reshape(-1)
     out[flat_ids] = vals
     return out.reshape(res, res, res)

@@ -6,8 +6,10 @@ Backends:
                   poisson_indicator_grid) from PCA + MST normals
   'hoppe'       — the tangent-plane SDF (ops.sdf.hoppe_sdf), evaluated in
                   a band around the points, vertices refined by bisection
-  'POCO'        — the occupancy network is not ported; without a network
-                  the JAX package warns and runs 'SPR', and so does this.
+  'POCO'        — the occupancy network (models/occupancy) through
+                  `poco_apply`, evaluated and refined as 'hoppe' is; with
+                  no network it warns and runs 'SPR', as the JAX package
+                  does.
 
 The field lives on a dense grid over [-0.62, 0.62]^3, marching cubes
 extracts the surface (ops/iso.py), the largest edge-connected component
@@ -97,6 +99,7 @@ def reconstruct_mesh(
     grid_res: int = 128,
     target_faces: int = 10000,
     noise_stddev: Optional[float] = None,
+    poco_apply=None,
     smooth_mesh: bool = False,
     refine_iters: int = 10,
     iso_method: str = "mc",
@@ -106,10 +109,13 @@ def reconstruct_mesh(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Point cloud (normalized to [-0.5, 0.5]) -> (vertices, faces).
 
-    `refine_iters` bisects the iso-vertices against the analytic field
-    (hoppe only: the Poisson field exists only on the grid, where linear
-    interpolation along the edges is already exact).  `timer` (a
-    StageTimer) records the sub-stages as 'geometry.<part>'."""
+    `poco_apply` (models.occupancy.load_poco_field) maps the cloud to its
+    occupancy field [M, 3] -> [M] (negative inside); geo_from='POCO' uses
+    it.  `refine_iters` bisects the iso-vertices against the analytic
+    field (POCO and hoppe: the Poisson field exists only on the grid,
+    where linear interpolation along the edges is already exact).
+    `timer` (a StageTimer) records the sub-stages as
+    'geometry.<part>'."""
     def part(name):
         return (timer.stage(f"geometry.{name}") if timer is not None
                 else contextlib.nullcontext())
@@ -125,13 +131,20 @@ def reconstruct_mesh(
 
     axis = np.linspace(GRID_LO, GRID_HI, grid_res, dtype=np.float32)
 
-    if geo_from == "POCO":
+    if geo_from == "POCO" and poco_apply is None:
         warnings.warn("geo_from='POCO' but no checkpoint/network supplied; "
                       "falling back to the non-learned 'SPR' backend")
         geo_from = "SPR"
 
     field_fn = None          # analytic field for vertex refinement
-    if geo_from in ("SPR", "poisson_fft"):
+    if geo_from == "POCO":
+        with part("poco_encode"):
+            field_fn = poco_apply(pts)
+        with part("poco_field"):
+            field = osdf.eval_sdf_on_grid_banded(field_fn, pts, grid_res,
+                                                 GRID_LO, GRID_HI,
+                                                 device=dev)
+    elif geo_from in ("SPR", "poisson_fft"):
         with part("normals"):
             normals = osdf.estimate_oriented_normals(pts, device=dev)
         with part("poisson"):
@@ -156,7 +169,8 @@ def reconstruct_mesh(
     with part("marching_cubes"):
         verts, faces, edge_keys = oiso.marching_cubes(
             torch.as_tensor(field, device=dev), axis, return_edge_keys=True)
-        if field_fn is not None and refine_iters > 0 and len(verts):
+    if field_fn is not None and refine_iters > 0 and len(verts):
+        with part("refine"):
             verts = oiso.refine_vertices_bisection(
                 field_fn, verts, edge_keys, field, axis, refine_iters,
                 device=dev)
@@ -165,7 +179,7 @@ def reconstruct_mesh(
             warnings.warn(f"{geo_from} produced an empty iso-surface; "
                           "retrying with 'hoppe'")
             return reconstruct_mesh(xyz_normalized, "hoppe", grid_res,
-                                    target_faces, None, smooth_mesh,
+                                    target_faces, None, None, smooth_mesh,
                                     iso_method=iso_method, device=device,
                                     timer=timer)
         raise RuntimeError("iso-surface extraction produced no triangles")

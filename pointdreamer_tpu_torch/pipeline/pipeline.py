@@ -5,15 +5,18 @@ Geometry, in the JAX package's order: a cached external mesh
 `<name>_untextured_mesh.obj` beside `<name>.ply` (original, un-normalized
 coordinates; back faces are then not culled, its winding being unknown),
 else the shape's own `geo/untextured.obj` from an earlier run, else
-`pipeline/geometry.py::reconstruct_mesh` from the cloud (SPR when no POCO
-network is configured), saved on the io thread.  Stage caches: the mesh,
+`pipeline/geometry.py::reconstruct_mesh` from the cloud (the POCO
+network of `poco_checkpoint`; SPR when none is configured), saved on the
+io thread.  Stage caches: the mesh,
 its unwrap (`geo/unwrap_<R>.npz`) and the inpainted views
 (`others/<i>_inpainted.png`).  The unwrap and the HPR hulls run on a host
-thread while the device works.
+thread while the device works; the unwrap thread's own wall and CPU
+seconds are recorded as `unwrap.thread` and `unwrap.thread_cpu`.
 """
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -80,6 +83,7 @@ class Pipeline:
     device: torch.device
     rig: CameraRig
     inpainter: object = None
+    poco_apply: object = None    # occupancy field factory or None
     logger: object = None
 
     @classmethod
@@ -92,10 +96,8 @@ class Pipeline:
         'nearest' with a warning, as the JAX package does.  `unet_kwargs`
         builds another UNetModel than the 552.8M flagship (the CPU tests'
         tiny one).  The UNet computes in bf16 on the card and in fp32 on
-        the CPU."""
+        the CPU; POCO (geo_from 'POCO' with a `poco_checkpoint`) in fp32."""
         dev = resolve_device(device)
-        if cfg.geo_from == "POCO" and cfg.poco_checkpoint:
-            raise NotImplementedError("POCO geometry: a later port slice")
         if cfg.ddnm_quant_int8:
             raise NotImplementedError("w8a8 DDNM: a later port slice")
         logger = get_logger(log_file)
@@ -121,8 +123,15 @@ class Pipeline:
                     "--allow_random_diffusion runs the sampler with random "
                     "weights anyway)")
                 cfg.texture_gen_method = "nearest"
+        poco_apply = None
+        if cfg.geo_from == "POCO" and cfg.poco_checkpoint:
+            from ..models.occupancy import load_poco_field
+
+            poco_apply = load_poco_field(cfg.poco_checkpoint, logger,
+                                         decoder=cfg.network_decoder,
+                                         device=dev)
         return cls(cfg=cfg, device=dev, rig=rig, inpainter=inpainter,
-                   logger=logger)
+                   poco_apply=poco_apply, logger=logger)
 
     def recon_one_textured_mesh(self, pc_file: str,
                                 name: Optional[str] = None,
@@ -169,7 +178,7 @@ class Pipeline:
                 verts, faces = pgeo.reconstruct_mesh(
                     xyz_n, cfg.geo_from, cfg.grid_res, cfg.target_face_num,
                     cfg.noise_stddev if not cfg.input_already_noisy else None,
-                    smooth_mesh=cfg.smooth_mesh,
+                    poco_apply=self.poco_apply, smooth_mesh=cfg.smooth_mesh,
                     refine_iters=cfg.refine_vertex_iters,
                     iso_method=cfg.iso_method,
                     screen_weight=cfg.spr_screen_weight, device=dev,
@@ -195,7 +204,12 @@ class Pipeline:
             if os.path.exists(unwrap_cache):
                 z = np.load(unwrap_cache)
                 return z["uvs"], z["face_uv_idx"]
+            # the thread's own wall and CPU time: it shares the host with
+            # the device stages that run meanwhile
+            t0, c0 = time.perf_counter(), time.thread_time()
             uv, fuv = punwrap.unwrap(verts, faces, atlas_res=R)
+            timer.record("unwrap.thread", time.perf_counter() - t0)
+            timer.record("unwrap.thread_cpu", time.thread_time() - c0)
             np.savez(unwrap_cache, uvs=uv, face_uv_idx=fuv)
             return uv, fuv
 

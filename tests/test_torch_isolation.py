@@ -40,7 +40,14 @@ def test_port_imports_nothing_forbidden():
                 "kernels/groupnorm.py", "kernels/winograd.py",
                 "models/diffusion/train.py",
                 "models/diffusion/synthetic_images.py",
-                "cli/train_ddnm_synthetic.py"):
+                "cli/train_ddnm_synthetic.py",
+                "models/occupancy/__init__.py", "models/occupancy/alt.py",
+                "models/occupancy/convert.py", "models/occupancy/datasets.py",
+                "models/occupancy/fkaconv.py", "models/occupancy/network.py",
+                "models/occupancy/spatial.py",
+                "models/occupancy/synthetic.py", "models/occupancy/train.py",
+                "models/occupancy/transforms.py", "eval/metrics.py",
+                "cli/generate.py", "cli/train_poco_synthetic.py"):
         assert os.path.join("pointdreamer_tpu_torch", mod) in scanned
     for path in _port_sources():
         with open(path) as fh:
@@ -72,14 +79,17 @@ def test_create_without_a_device_needs_cuda():
 
 @pytest.mark.parametrize("call", ["camera_rig", "bake_atlas",
                                   "reconstruct_mesh", "spr_baseline",
-                                  "train_ddnm_synthetic"])
+                                  "train_ddnm_synthetic", "load_poco_field",
+                                  "generate", "train_poco_synthetic"])
 def test_helpers_without_a_device_need_cuda(call):
     # the helpers an entry point calls default to device='cuda' too
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     from pointdreamer_tpu_torch.baselines.spr import recon_one_shape_SPR
     from pointdreamer_tpu_torch.camera import make_camera_rig
-    from pointdreamer_tpu_torch.cli import train_ddnm_synthetic
+    from pointdreamer_tpu_torch.cli import (generate, train_ddnm_synthetic,
+                                            train_poco_synthetic)
+    from pointdreamer_tpu_torch.models.occupancy import load_poco_field
     from pointdreamer_tpu_torch.pipeline.geometry import reconstruct_mesh
     from pointdreamer_tpu_torch.pipeline.unwrap import bake_atlas
 
@@ -92,6 +102,11 @@ def test_helpers_without_a_device_need_cuda(call):
            "reconstruct_mesh": lambda: reconstruct_mesh(pts, "SPR", 16, 100),
            "spr_baseline": lambda: recon_one_shape_SPR(pts, None, 100, 16),
            "train_ddnm_synthetic": lambda: train_ddnm_synthetic.main(
+               ["--epochs", "1", "--steps", "1"]),
+           "load_poco_field": lambda: load_poco_field("poco.pkl"),
+           "generate": lambda: generate.main(["--pc_file", "x.ply",
+                                              "--out", "x.obj"]),
+           "train_poco_synthetic": lambda: train_poco_synthetic.main(
                ["--epochs", "1", "--steps", "1"])}
     with pytest.raises((RuntimeError, AssertionError),
                        match="CUDA|Torch not compiled"):
