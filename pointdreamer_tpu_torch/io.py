@@ -1,4 +1,5 @@
-"""Host-side IO: PLY point clouds, OBJ/MTL meshes, 8-bit PNG images.
+"""Host-side IO: PLY point clouds and meshes, OBJ/MTL meshes, 8-bit PNG
+images.
 
 Twin of pointdreamer_tpu's core/io.py without PIL or cv2: PNGs are written
 and read with zlib + struct (8-bit gray, gray+alpha, RGB and RGBA; all
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import os
 import struct
+import threading
 import zlib
 from typing import Dict, Tuple
 
@@ -78,6 +80,90 @@ def read_ply_xyzrgb(path: str) -> Tuple[np.ndarray, np.ndarray]:
     else:
         rgb = np.zeros((n_vertex, 3), dtype=np.uint8)
     return xyz, rgb
+
+
+def load_ply_mesh(path: str) -> Dict[str, np.ndarray]:
+    """Read a PLY MESH (vertex + face elements), ascii or
+    binary_little_endian.  Returns {'vertices' [N,3] f32,
+    'faces' [F,3] i64} (quads are fan-triangulated).  The point2surf GT
+    meshes (eval/eval_point2surf/evaluation.py:221-305 load them with
+    trimesh) are plain tri meshes in this format."""
+    with open(path, "rb") as f:
+        if f.readline().strip() != b"ply":
+            raise ValueError(f"{path}: not a PLY file")
+        fmt = None
+        elements = []           # (name, count, [(prop, dtype) | list])
+        cur = None
+        while True:
+            line = f.readline()
+            if not line:
+                raise ValueError(f"{path}: unexpected EOF in header")
+            tok = line.decode("ascii", "replace").strip().split()
+            if not tok:
+                continue
+            if tok[0] == "format":
+                fmt = tok[1]
+            elif tok[0] == "element":
+                cur = (tok[1], int(tok[2]), [])
+                elements.append(cur)
+            elif tok[0] == "property" and cur is not None:
+                if tok[1] == "list":
+                    cur[2].append(("list", _PLY_TYPES[tok[2]],
+                                   _PLY_TYPES[tok[3]], tok[-1]))
+                else:
+                    cur[2].append(("scalar", _PLY_TYPES[tok[1]], tok[-1]))
+            elif tok[0] == "end_header":
+                break
+
+        verts, faces = None, []
+        for name, count, props in elements:
+            if fmt == "ascii":
+                rows = [f.readline().split() for _ in range(count)]
+                if name == "vertex":
+                    idx = {p[-1]: i for i, p in enumerate(props)
+                           if p[0] == "scalar"}
+                    arr = np.array([[r[idx["x"]], r[idx["y"]], r[idx["z"]]]
+                                    for r in rows], np.float32)
+                    verts = arr
+                elif name == "face":
+                    for r in rows:
+                        k = int(r[0])
+                        poly = [int(v) for v in r[1:1 + k]]
+                        for j in range(1, k - 1):
+                            faces.append([poly[0], poly[j], poly[j + 1]])
+            elif fmt == "binary_little_endian":
+                if all(p[0] == "scalar" for p in props):
+                    dtype = np.dtype([(p[-1], "<" + p[1]) for p in props])
+                    rec = np.frombuffer(f.read(dtype.itemsize * count),
+                                        dtype=dtype, count=count)
+                    if name == "vertex":
+                        verts = np.stack([rec["x"], rec["y"], rec["z"]],
+                                         1).astype(np.float32)
+                else:
+                    # list property (face indices): parse sequentially
+                    for _ in range(count):
+                        for p in props:
+                            if p[0] == "list":
+                                cnt_dt = np.dtype("<" + p[1])
+                                val_dt = np.dtype("<" + p[2])
+                                k = int(np.frombuffer(
+                                    f.read(cnt_dt.itemsize), cnt_dt)[0])
+                                poly = np.frombuffer(
+                                    f.read(val_dt.itemsize * k), val_dt,
+                                    count=k).astype(np.int64)
+                                if name == "face":
+                                    for j in range(1, k - 1):
+                                        faces.append([poly[0], poly[j],
+                                                      poly[j + 1]])
+                            else:
+                                f.read(np.dtype("<" + p[1]).itemsize)
+            else:
+                raise ValueError(f"{path}: unsupported PLY format {fmt}")
+
+    if verts is None:
+        raise ValueError(f"{path}: no vertex element")
+    return {"vertices": verts,
+            "faces": np.asarray(faces, np.int64).reshape(-1, 3)}
 
 
 def save_colored_pc_ply(xyz, rgb01, path: str) -> None:
@@ -308,24 +394,34 @@ def load_rgb(path: str) -> np.ndarray:
 # --------------------------------------------------------------------------
 
 _ASYNC_IO = None
-_PENDING: list = []
+_ASYNC_LOCK = threading.Lock()
+# queued writes by the thread that queued them: concurrent shapes
+# (pipeline/batch.py) each flush their own writes, and one shape's writer
+# error stays its own
+_PENDING: Dict[int, list] = {}
 
 
 def async_executor():
     """The one background IO thread (created on first use)."""
     global _ASYNC_IO
-    if _ASYNC_IO is None:
-        from concurrent.futures import ThreadPoolExecutor
+    with _ASYNC_LOCK:
+        if _ASYNC_IO is None:
+            from concurrent.futures import ThreadPoolExecutor
 
-        _ASYNC_IO = ThreadPoolExecutor(max_workers=1,
-                                       thread_name_prefix="pd-io")
+            _ASYNC_IO = ThreadPoolExecutor(max_workers=1,
+                                           thread_name_prefix="pd-io")
     return _ASYNC_IO
+
+
+def _queue(fut) -> None:
+    with _ASYNC_LOCK:
+        _PENDING.setdefault(threading.get_ident(), []).append(fut)
 
 
 def submit_async_io(fn) -> None:
     """Queue an IO callable on the background thread; pair with
-    flush_async_io()."""
-    _PENDING.append(async_executor().submit(fn))
+    flush_async_io() in the same thread."""
+    _queue(async_executor().submit(fn))
 
 
 def save_rgb_stack_async(imgs, paths, flip_vertical: bool = False) -> None:
@@ -337,18 +433,19 @@ def save_rgb_stack_async(imgs, paths, flip_vertical: bool = False) -> None:
         for a, p in zip(stack, ps):
             save_rgb(a, p, flip)
 
-    _PENDING.append(async_executor().submit(work))
+    _queue(async_executor().submit(work))
 
 
 def flush_async_io() -> None:
-    """Block until every queued write has finished; re-raise the first
-    writer error."""
+    """Block until every write this thread queued has finished; re-raise
+    the first writer error."""
+    with _ASYNC_LOCK:
+        mine = _PENDING.pop(threading.get_ident(), [])
     err = None
-    while _PENDING:
-        fut = _PENDING.pop()
+    for fut in mine:
         try:
             fut.result()
         except Exception as e:      # keep draining, report one
-            err = e
+            err = err or e
     if err is not None:
         raise err

@@ -11,8 +11,8 @@ counts the tensor-core instructions of each kernel in the built library.
 
 Each wrapper (ops/raster.py for K1 and K4, models/diffusion/attention.py,
 pipeline/optimize.py, kernels/groupnorm.py, kernels/winograd.py) adds one
-to its entry of `LAUNCHES` where it launches its kernel, and nowhere
-else.  `build_host` compiles the host C++ libraries (csrc/host/*.cpp) with
+to its entry of `LAUNCHES` (`count_launch`, under a lock: shapes run on
+several threads) where it launches its kernel, and nowhere else.  `build_host` compiles the host C++ libraries (csrc/host/*.cpp) with
 g++ into the same directory.
 """
 from __future__ import annotations
@@ -68,9 +68,18 @@ _SIGNATURES = {
 }
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:

@@ -23,7 +23,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from . import LAUNCHES, check, lib, require_cuda_tensor, stream_ptr
+from . import (check, count_launch, lib, require_cuda_tensor,
+               stream_ptr)
 
 GROUPS = 32
 # csrc/groupnorm.cu's launch constants (checked against the built library
@@ -200,7 +201,7 @@ def _fused_groupnorm_cuda(x, gamma, beta, ss, silu, eps, out_dtype):
         plan.n_ranges, plan.rows, plan.keep_rows, plan.cluster,
         plan.clusters, int(x_bf16), int(out_bf16), int(silu), eps,
         stream_ptr(dev)), "groupnorm")
-    LAUNCHES["groupnorm"] += 1
+    count_launch("groupnorm")
     return out
 
 

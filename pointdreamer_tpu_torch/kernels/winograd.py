@@ -19,7 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import LAUNCHES, check, lib, require_cuda_tensor, stream_ptr
+from . import (check, count_launch, lib, require_cuda_tensor,
+               stream_ptr)
 
 
 def _g_rows(a: torch.Tensor, dim: int) -> torch.Tensor:
@@ -120,7 +121,7 @@ def winograd_conv3x3_pretransformed(x: torch.Tensor,
     check(lib().pd_winograd_conv3x3(
         x.data_ptr(), u.data_ptr(), out.data_ptr(), B, H, W, Cin, Cout,
         stream_ptr(x.device)), "winograd_conv3x3")
-    LAUNCHES["winograd_conv3x3"] += 1
+    count_launch("winograd_conv3x3")
     return out
 
 

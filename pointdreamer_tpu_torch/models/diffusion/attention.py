@@ -71,7 +71,7 @@ def _attention_qkv_cuda(qkv: torch.Tensor, heads: int) -> torch.Tensor:
         qkv.data_ptr(), out.data_ptr(), B, T, heads, hd,
         int(qkv.dtype == torch.bfloat16), scale * scale,
         kernels.stream_ptr(qkv.device)), "attention_qkv")
-    kernels.LAUNCHES["attention_qkv"] += 1
+    kernels.count_launch("attention_qkv")
     return out
 
 

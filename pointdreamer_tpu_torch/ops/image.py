@@ -1,7 +1,7 @@
 """Batched 2D image ops (twin of ops/image.py).
 
 scharr_edges, dilate, inner_edge_mask, the jump-flooding nearest_fill,
-pullpush_fill, rescale_about_center, and
+pullpush_fill, rescale_about_center, bilinear_sample, and
 `resize_linear` / `scale_and_translate_linear`: the same weight matrices
 as jax.image's triangle kernel (compute_weight_mat), contracted in fp32.
 """
@@ -179,6 +179,24 @@ def resize_linear_hwc(img: torch.Tensor, out_hw: Sequence[int],
     """resize_linear for channel-last [..., H, W, C] images."""
     x = img.movedim(-1, -3)
     return resize_linear(x, out_hw, antialias).movedim(-3, -1)
+
+
+def bilinear_sample(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Sample img [H,W,C] at continuous uv [...,2] in [0,1] (u -> col,
+    v -> row), bilinear, clamped borders -> [..., C]."""
+    h, w = img.shape[:2]
+    x = (uv[..., 0] * w - 0.5).clamp(0.0, w - 1.0)
+    y = (uv[..., 1] * h - 0.5).clamp(0.0, h - 1.0)
+    x0 = torch.floor(x).long()
+    y0 = torch.floor(y).long()
+    x1 = (x0 + 1).clamp(max=w - 1)
+    y1 = (y0 + 1).clamp(max=h - 1)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    c00, c01 = img[y0, x0], img[y0, x1]
+    c10, c11 = img[y1, x0], img[y1, x1]
+    return ((c00 * (1 - fx) + c01 * fx) * (1 - fy)
+            + (c10 * (1 - fx) + c11 * fx) * fy)
 
 
 def rescale_about_center(img: torch.Tensor, scale) -> torch.Tensor:

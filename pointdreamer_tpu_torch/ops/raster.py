@@ -363,7 +363,7 @@ def raster_binned_tiles(cof: torch.Tensor, bbox: torch.Tensor, bins: Bins
 def _rasterize_coefficients_cuda(cof: torch.Tensor, bbox: torch.Tensor,
                                  res: int) -> RasterOut:
     out = raster_binned_tiles(cof, bbox, bin_pixel_boxes(bbox, res))
-    kernels.LAUNCHES["raster_binned"] += 1
+    kernels.count_launch("raster_binned")
     return out
 
 
@@ -483,7 +483,7 @@ def raster_legacy_tiles(tri: torch.Tensor, bins: Bins) -> RasterOut:
 
 def _rasterize_legacy_cuda(tri: torch.Tensor, res: int) -> RasterOut:
     out = raster_legacy_tiles(tri, bin_xy_boxes(tri, res))
-    kernels.LAUNCHES["raster_legacy"] += 1
+    kernels.count_launch("raster_legacy")
     return out
 
 

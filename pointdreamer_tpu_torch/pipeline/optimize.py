@@ -142,7 +142,7 @@ def _segment_sum_cuda(contrib: torch.Tensor, cum_bounds: torch.Tensor
         contrib.data_ptr(), cum_bounds.data_ptr(), contrib.shape[1], n_tex,
         SEGSUM_TEXELS, SEGSUM_CHUNK, out.data_ptr(),
         kernels.stream_ptr(contrib.device)), "segment_sum")
-    kernels.LAUNCHES["segment_sum"] += 1
+    kernels.count_launch("segment_sum")
     return out
 
 

@@ -20,7 +20,7 @@ def analytic_color(p: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], axis=-1), 0.0, 1.0)
 
 
-def cube_cloud(n: int = 30000, seed: int = 0):
+def cube_cloud(n: int = 30000, seed: int = 0, color_fn=analytic_color):
     """Uniform samples on the unit-cube surface with analytic colours."""
     rng = np.random.default_rng(seed)
     face = rng.integers(0, 6, n)
@@ -33,7 +33,7 @@ def cube_cloud(n: int = 30000, seed: int = 0):
     pts[rows, axis] = sign
     pts[rows, other[:, 0]] = uv[:, 0]
     pts[rows, other[:, 1]] = uv[:, 1]
-    return pts.astype(np.float32), analytic_color(pts).astype(np.float32)
+    return pts.astype(np.float32), color_fn(pts).astype(np.float32)
 
 
 def cube_mesh(n_div: int = 40) -> Tuple[np.ndarray, np.ndarray]:

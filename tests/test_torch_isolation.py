@@ -47,7 +47,14 @@ def test_port_imports_nothing_forbidden():
                 "models/occupancy/spatial.py",
                 "models/occupancy/synthetic.py", "models/occupancy/train.py",
                 "models/occupancy/transforms.py", "eval/metrics.py",
-                "cli/generate.py", "cli/train_poco_synthetic.py"):
+                "cli/generate.py", "cli/train_poco_synthetic.py",
+                "eval/render.py", "eval/run_evaluation.py",
+                "eval/selfparity.py", "models/perception/__init__.py",
+                "models/perception/vgg.py", "models/perception/inception.py",
+                "models/perception/convert.py", "pipeline/batch.py",
+                "cli/render_meshes.py", "cli/run_evaluation.py",
+                "cli/eval_meshes.py", "cli/eval_point2surf.py",
+                "cli/geometry_table.py"):
         assert os.path.join("pointdreamer_tpu_torch", mod) in scanned
     for path in _port_sources():
         with open(path) as fh:
@@ -80,15 +87,29 @@ def test_create_without_a_device_needs_cuda():
 @pytest.mark.parametrize("call", ["camera_rig", "bake_atlas",
                                   "reconstruct_mesh", "spr_baseline",
                                   "train_ddnm_synthetic", "load_poco_field",
-                                  "generate", "train_poco_synthetic"])
-def test_helpers_without_a_device_need_cuda(call):
+                                  "generate", "train_poco_synthetic",
+                                  "render_mesh_dir", "evaluate_image_dirs",
+                                  "texture_self_psnr", "evaluate_geometry",
+                                  "load_inception_features", "load_lpips",
+                                  "run_dataset", "run_roundtrip",
+                                  "render_meshes", "run_evaluation",
+                                  "eval_meshes", "eval_point2surf",
+                                  "geometry_table"])
+def test_helpers_without_a_device_need_cuda(call, tmp_path):
     # the helpers an entry point calls default to device='cuda' too
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     from pointdreamer_tpu_torch.baselines.spr import recon_one_shape_SPR
     from pointdreamer_tpu_torch.camera import make_camera_rig
-    from pointdreamer_tpu_torch.cli import (generate, train_ddnm_synthetic,
+    from pointdreamer_tpu_torch.cli import (eval_meshes, eval_point2surf,
+                                            generate, geometry_table,
+                                            render_meshes, run_evaluation,
+                                            train_ddnm_synthetic,
                                             train_poco_synthetic)
+    from pointdreamer_tpu_torch.eval import render, run_evaluation as reval
+    from pointdreamer_tpu_torch.eval.selfparity import run_roundtrip
+    from pointdreamer_tpu_torch.models import perception
+    from pointdreamer_tpu_torch.pipeline.batch import run_dataset
     from pointdreamer_tpu_torch.models.occupancy import load_poco_field
     from pointdreamer_tpu_torch.pipeline.geometry import reconstruct_mesh
     from pointdreamer_tpu_torch.pipeline.unwrap import bake_atlas
@@ -107,7 +128,30 @@ def test_helpers_without_a_device_need_cuda(call):
            "generate": lambda: generate.main(["--pc_file", "x.ply",
                                               "--out", "x.obj"]),
            "train_poco_synthetic": lambda: train_poco_synthetic.main(
-               ["--epochs", "1", "--steps", "1"])}
+               ["--epochs", "1", "--steps", "1"]),
+           "render_mesh_dir": lambda: render.render_mesh_dir("x.obj", "out"),
+           "evaluate_image_dirs": lambda: reval.evaluate_image_dirs("a",
+                                                                    "b"),
+           "texture_self_psnr": lambda: reval.texture_self_psnr("x.obj",
+                                                                "x.ply"),
+           "evaluate_geometry": lambda: reval.evaluate_geometry("a.obj",
+                                                                "b.obj"),
+           "load_inception_features": lambda:
+               perception.load_inception_features("x.pth"),
+           "load_lpips": lambda: perception.load_lpips("v.pth", "l.pth"),
+           "run_dataset": lambda: run_dataset(
+               load_config(os.path.join(REPO, "configs", "nearest.yaml")),
+               []),
+           "run_roundtrip": lambda: run_roundtrip(str(tmp_path)),
+           "render_meshes": lambda: render_meshes.main(
+               ["--root", "x", "--save_root", "y"]),
+           "run_evaluation": lambda: run_evaluation.main(
+               ["--gt_root", "x", "--pred_root", "y"]),
+           "eval_meshes": lambda: eval_meshes.main(
+               ["--pred_root", "x", "--gt_root", "y"]),
+           "eval_point2surf": lambda: eval_point2surf.main(
+               ["--gendir", "x", "--gtdir", "y"]),
+           "geometry_table": lambda: geometry_table.main(["--data", "x"])}
     with pytest.raises((RuntimeError, AssertionError),
                        match="CUDA|Torch not compiled"):
         run[call]()
