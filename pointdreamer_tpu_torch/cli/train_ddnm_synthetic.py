@@ -12,7 +12,10 @@ pull-push linear, `pipeline/inpaint.py`).
         --ckpt build/ddnm_synth.pkl --epochs 30 --steps 200
 
 Prints one JSON table; exits 1 if DDNM with the trained model does not
-beat both non-learned fills.  Runs on the card unless `--device cpu`.
+beat both non-learned fills.  `--quant-fidelity` also runs the w8a8
+samplers (dynamic and static activation scales) over the trained weights
+on the same draws and records their PSNR against the fp sampler.  Runs on
+the card unless `--device cpu`.
 """
 from __future__ import annotations
 
@@ -39,6 +42,35 @@ def build_model(channels: int = 32, device="cuda", seed: int = 0):
     return init_random_(model.to_empty(device=device), seed)
 
 
+def quant_fidelity(model, masked, masks, gen, draws, out_fp, t_sampling,
+                   psnr_unknown):
+    """The w8a8 twin of the trained model (quantized from its fp32
+    weights), sampled with dynamic and with static (calibrated on the
+    first call) activation scales on the fp sampler's draws: PSNR of each
+    against the fp result, and over the unknown pixels."""
+    import copy
+
+    from ..models.diffusion.ddnm import DDNMInpainter, ddnm_inpaint_batch
+    from ..models.diffusion.unet import quantize_unet_
+
+    qmodel = quantize_unet_(copy.deepcopy(model))
+    gen.set_state(draws)
+    out_dyn = ddnm_inpaint_batch(qmodel, masked, masks, gen,
+                                 t_sampling=t_sampling)
+    gen.set_state(draws)
+    out_stat = DDNMInpainter(qmodel, t_sampling=t_sampling,
+                             static_calib=True).inpaint(masked, masks, gen)
+
+    def psnr_full(a, b):
+        mse = float(((a.double() - b.double()) ** 2).mean())
+        return float(10 * np.log10(1.0 / max(mse, 1e-12)))
+
+    return {"int8-dynamic PSNR vs fp sampler": psnr_full(out_dyn, out_fp),
+            "int8-static PSNR vs fp sampler": psnr_full(out_stat, out_fp),
+            "DDNM(int8-dynamic)": psnr_unknown(out_dyn),
+            "DDNM(int8-static)": psnr_unknown(out_stat)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(),
@@ -55,12 +87,11 @@ def main(argv=None):
                     help="fraction of pixels kept in the masked inputs")
     ap.add_argument("--skip-train", action="store_true")
     ap.add_argument("--quant-fidelity", action="store_true",
-                    help="the w8a8 samplers' fidelity (not ported)")
+                    help="also run the w8a8 samplers over the trained "
+                         "weights and record their PSNR against the fp "
+                         "sampler")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.quant_fidelity:
-        raise NotImplementedError("--quant-fidelity: the w8a8 UNet is not "
-                                  "ported (ROADMAP Queue A3)")
 
     from ..log import get_logger
     from ..models.diffusion.ddnm import ddnm_inpaint_batch
@@ -101,12 +132,17 @@ def main(argv=None):
         mse = d2.sum() / (unk.sum() * 3.0)
         return float(10 * np.log10(1.0 / max(mse, 1e-12)))
 
+    draws = gen.get_state()         # every sampler below takes these draws
+    out = ddnm_inpaint_batch(model, masked, masks, gen,
+                             t_sampling=args.t_sampling)
     results = {
-        "DDNM(self-trained)": psnr_unknown(ddnm_inpaint_batch(
-            model, masked, masks, gen, t_sampling=args.t_sampling)),
+        "DDNM(self-trained)": psnr_unknown(out),
         "nearest(jump-flood)": psnr_unknown(inpaint_nearest(masked, masks)),
         "linear(pull-push)": psnr_unknown(inpaint_linear(masked, masks)),
     }
+    if args.quant_fidelity:
+        results.update(quant_fidelity(model, masked, masks, gen, draws, out,
+                                      args.t_sampling, psnr_unknown))
     for k, v in results.items():
         log.info(f"{k}: unknown-region PSNR {v:.2f} dB")
     print(json.dumps({k: round(v, 3) for k, v in results.items()},

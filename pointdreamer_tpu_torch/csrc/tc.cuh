@@ -1,7 +1,8 @@
 // Tensor-core building blocks shared by the bf16 kernels (attention.cu,
-// winograd.cu), sm_80+ PTX that Hopper runs as is: cp.async copies into
-// shared memory, ldmatrix fragment loads and mma.sync m16n8k16 bf16
-// products with fp32 accumulators.
+// winograd.cu) and the int8 one (quant.cu), sm_80+ PTX that Hopper runs as
+// is: cp.async copies into shared memory, ldmatrix fragment loads,
+// mma.sync m16n8k16 bf16 products with fp32 accumulators and m16n8k32 s8
+// products with int32 accumulators.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = 4 * g + t):
 //   A 16x16 (row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
@@ -68,6 +69,21 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b on the tensor cores (s8 in, s32 accumulate), m16n8k32.  Its
+// fragments hold the same bytes as m16n8k16 bf16's (4 int8 where bf16 has
+// 2), so the ldmatrix loads above serve it unchanged on 32-byte rows:
+//   A 16x32: a0 (g, 4t..4t+3), a1 (g+8, 4t..), a2 (g, 16+4t..), a3 (g+8, ..)
+//   B 32x8:  b0 (k = 4t..4t+3, n = g), b1 (k = 16+4t.., n = g)
+//   C 16x8:  c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1), int32
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

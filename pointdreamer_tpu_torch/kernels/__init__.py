@@ -10,7 +10,8 @@ loaded with ctypes.  Nothing here runs at import time.  `sass_mma_counts`
 counts the tensor-core instructions of each kernel in the built library.
 
 Each wrapper (ops/raster.py for K1 and K4, models/diffusion/attention.py,
-pipeline/optimize.py, kernels/groupnorm.py, kernels/winograd.py) adds one
+pipeline/optimize.py, kernels/groupnorm.py, kernels/winograd.py,
+kernels/quant.py for K7 and K8) adds one
 to its entry of `LAUNCHES` (`count_launch`, under a lock: shapes run on
 several threads) where it launches its kernel, and nowhere else.  `build_host` compiles the host C++ libraries (csrc/host/*.cpp) with
 g++ into the same directory.
@@ -33,7 +34,7 @@ CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
                          "pointdreamer_tpu_torch")
 SOURCES = ("raster.cu", "raster_legacy.cu", "attention.cu", "segsum.cu",
-           "groupnorm.cu", "winograd.cu")
+           "groupnorm.cu", "winograd.cu", "quant.cu")
 HEADERS = ("tc.cuh", "raster_bin.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
@@ -42,11 +43,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # profile_unet.py work out the least time a kernel or a forward could take
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12        # tensor-core bf16
+INT8_OPS_PER_S = 1979e12       # tensor-core int8
 FP32_OPS_PER_S = 67e12         # fp32 outside the tensor cores
 
 LAUNCHES: Dict[str, int] = {"raster_binned": 0, "raster_legacy": 0,
                             "attention_qkv": 0, "segment_sum": 0,
-                            "groupnorm": 0, "winograd_conv3x3": 0}
+                            "groupnorm": 0, "winograd_conv3x3": 0,
+                            "quantize_act": 0, "int8_conv": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -65,6 +68,9 @@ _SIGNATURES = {
     "pd_groupnorm_limits": [_P],
     "pd_groupnorm_max_clusters": [_I, _I, _I],
     "pd_winograd_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "pd_quantize_act": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "pd_int8_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _P],
 }
 
 
@@ -137,9 +143,13 @@ def build() -> str:
     return out
 
 
+MMA_OPCODES = ("HMMA", "HGMMA", "IMMA", "IGMMA")
+
+
 def mma_counts(sass: str) -> Dict[str, int]:
-    """Tensor-core instructions (HMMA, HGMMA) in each function of a
-    `cuobjdump -sass` listing, by the function's (mangled) name."""
+    """Tensor-core instructions (HMMA, HGMMA, and the int8 IMMA, IGMMA) in
+    each function of a `cuobjdump -sass` listing, by the function's
+    (mangled) name."""
     counts: Dict[str, int] = {}
     name = None
     for line in sass.splitlines():
@@ -147,7 +157,7 @@ def mma_counts(sass: str) -> Dict[str, int]:
         if head.startswith("Function : "):
             name = head[len("Function : "):].strip()
             counts.setdefault(name, 0)
-        elif name is not None and ("HMMA" in line or "HGMMA" in line):
+        elif name is not None and any(op in line for op in MMA_OPCODES):
             counts[name] += 1
     return counts
 

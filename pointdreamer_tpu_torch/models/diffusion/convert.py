@@ -5,7 +5,10 @@
 numpy arrays) to the guided-diffusion `state_dict` layout that
 `UNetModel.load_state_dict` takes.  flax conv kernels are [kh,kw,I,O]
 (torch [O,I,kh,kw]), dense kernels [I,O] (torch [O,I], or [O,I,1] for
-the attention's 1-d convs), GroupNorm `scale` is torch's `weight`.
+the attention's 1-d convs), GroupNorm `scale` is torch's `weight`.  A
+w8a8 tree (`quantize_unet_params`) carries its sites' {kernel_q int8
+[kh,kw,I,O] or [I,O], kernel_s, bias} to the QConv8 / QDense8 layout
+(`kernel_q` [O,kh,kw,I], dense [O,1,1,I]) of `UNetModel(quant=True)`.
 """
 from __future__ import annotations
 
@@ -16,7 +19,18 @@ import numpy as np
 from .unet import unet_plan
 
 
+def _quant(p, prefix, sd):
+    kq = np.asarray(p["kernel_q"])
+    if kq.ndim == 2:                        # dense [I, O]
+        kq = kq[None, None]
+    sd[prefix + ".kernel_q"] = kq.transpose(3, 0, 1, 2)
+    sd[prefix + ".kernel_s"] = np.asarray(p["kernel_s"])
+    sd[prefix + ".bias"] = np.asarray(p["bias"])
+
+
 def _conv(p, prefix, sd):
+    if "kernel_q" in p:
+        return _quant(p, prefix, sd)
     sd[prefix + ".weight"] = np.asarray(p["kernel"]).transpose(3, 2, 0, 1)
     sd[prefix + ".bias"] = np.asarray(p["bias"])
 
@@ -27,6 +41,8 @@ def _dense(p, prefix, sd):
 
 
 def _dense_as_conv1d(p, prefix, sd):
+    if "kernel_q" in p:
+        return _quant(p, prefix, sd)
     sd[prefix + ".weight"] = np.asarray(p["kernel"]).T[:, :, None]
     sd[prefix + ".bias"] = np.asarray(p["bias"])
 
@@ -62,7 +78,8 @@ def _layer(kind, p, prefix, sd):
 def params_from_jax(params: Dict, model_channels=256, num_res_blocks=2,
                     channel_mult=(1, 1, 2, 2, 4, 4),
                     attention_ds=(8, 16, 32)) -> Dict[str, np.ndarray]:
-    """flax UNet params (numpy leaves) -> guided-diffusion state dict."""
+    """flax UNet params (numpy leaves) -> guided-diffusion state dict (of
+    `UNetModel(quant=True)` for a w8a8 tree)."""
     input_plan, middle_plan, output_plan = unet_plan(
         model_channels, num_res_blocks, tuple(channel_mult),
         tuple(attention_ds))
@@ -81,4 +98,6 @@ def params_from_jax(params: Dict, model_channels=256, num_res_blocks=2,
                    f"output_blocks.{i}.{j}", sd)
     _norm(params["out_norm"], "out.0", sd)
     _conv(params["out_conv"], "out.2", sd)
-    return {k: np.ascontiguousarray(v, np.float32) for k, v in sd.items()}
+    return {k: np.ascontiguousarray(
+        v, np.int8 if k.endswith(".kernel_q") else np.float32)
+        for k, v in sd.items()}

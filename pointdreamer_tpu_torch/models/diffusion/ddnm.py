@@ -7,6 +7,12 @@ Faithful to the reference math and its quirks:
   sigma_t = sqrt(1 - a_next^2)              <- the reference's square
   x_next  = sqrt(a_next) x0_hat + sigma_t (c1 z + c2 e_t)
 with eta 0.85, linear betas 1e-4..0.02 over 1000 steps, 100 sampling steps.
+
+A w8a8 model (`UNetModel.quant`) runs with dynamic activation scales, or
+collects each site's per-step max |activation| into a device table
+[n_sites, n_steps], or reads static per-step scales from such a table:
+the sampler sets the step index before each forward (the JAX sampler's
+per-step `act_scales` scan input and `calib` scan output).
 """
 from __future__ import annotations
 
@@ -50,11 +56,16 @@ def ddnm_inpaint_batch(model, masked_imgs: torch.Tensor,
                        masks: torch.Tensor, generator=None,
                        t_sampling: int = 100, eta: float = 0.85,
                        num_timesteps: int = 1000,
-                       noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       noise: Optional[torch.Tensor] = None,
+                       act_scales: Optional[torch.Tensor] = None,
+                       collect_calib: bool = False):
     """masked_imgs [B,H,W,3] in [0,1] (zeros where unknown), masks [B,H,W]
     or [B,H,W,1] (1 = known) -> inpainted [B,H,W,3] in [0,1].  `noise`
     [1+t_sampling,B,H,W,3], when given, replaces every random draw (x_T,
-    then one z per step)."""
+    then one z per step).  For a w8a8 model: `act_scales` [n_sites,
+    n_steps] static per-step amax (None: dynamic); `collect_calib` returns
+    (images, calib), calib [n_sites, n_steps] the per-step max |activation|
+    of each site (n_sites = 0 for a model without w8a8 sites)."""
     if masks.dim() == 3:
         masks = masks[..., None]
     B, H, W, _ = masked_imgs.shape
@@ -74,38 +85,75 @@ def ddnm_inpaint_batch(model, masked_imgs: torch.Tensor,
         return torch.randn((B, H, W, 3), generator=generator, device=dev,
                            dtype=torch.float32)
 
-    x = noise[0] if noise is not None else draw()
-    for s in range(len(pairs)):
-        z = noise[1 + s] if noise is not None else draw()
-        at = torch.tensor(at_arr[s], device=dev)
-        at_next = torch.tensor(at_next_arr[s], device=dev)
-        t = torch.full((B,), float(i_steps[s]), device=dev)
-        et = model(x, t)[..., :3].float()
-        x0_t = (x - et * torch.sqrt(1.0 - at)) / torch.sqrt(at)
-        sigma_t = torch.sqrt(1.0 - at_next ** 2)
-        x0_hat = x0_t - (x0_t * masks - y)
-        c1 = torch.sqrt(1.0 - at_next) * eta
-        c2 = torch.sqrt(1.0 - at_next) * torch.sqrt(
-            torch.tensor(1.0 - eta ** 2, device=dev))
-        x = torch.sqrt(at_next) * x0_hat + sigma_t * (c1 * z + c2 * et)
-    return ((x + 1.0) / 2.0).clamp(0.0, 1.0)
+    scales = getattr(model, "act_scales", None)
+    n_sites = scales.n_sites if scales is not None else 0
+    calib = (torch.zeros((n_sites, len(pairs)), dtype=torch.float32,
+                         device=dev) if collect_calib else None)
+    if n_sites and act_scales is not None:
+        scales.set("static", act_scales)
+    elif n_sites and collect_calib:
+        scales.set("collect", calib)
+    try:
+        x = noise[0] if noise is not None else draw()
+        for s in range(len(pairs)):
+            if n_sites:
+                scales.step = s
+            z = noise[1 + s] if noise is not None else draw()
+            at = torch.tensor(at_arr[s], device=dev)
+            at_next = torch.tensor(at_next_arr[s], device=dev)
+            t = torch.full((B,), float(i_steps[s]), device=dev)
+            et = model(x, t)[..., :3].float()
+            x0_t = (x - et * torch.sqrt(1.0 - at)) / torch.sqrt(at)
+            sigma_t = torch.sqrt(1.0 - at_next ** 2)
+            x0_hat = x0_t - (x0_t * masks - y)
+            c1 = torch.sqrt(1.0 - at_next) * eta
+            c2 = torch.sqrt(1.0 - at_next) * torch.sqrt(
+                torch.tensor(1.0 - eta ** 2, device=dev))
+            x = torch.sqrt(at_next) * x0_hat + sigma_t * (c1 * z + c2 * et)
+    finally:
+        if n_sites:
+            scales.set("dynamic")
+    out = ((x + 1.0) / 2.0).clamp(0.0, 1.0)
+    return (out, calib) if collect_calib else out
 
 
 class DDNMInpainter:
     """The UNet + sampler settings (reference ddnm_inpainting.py:15-44).
     Random draws come from a generator on the model's device, seeded with
-    `seed` (1234) on every call."""
+    `seed` (1234) on every call.
+
+    `static_calib` (a w8a8 model): the first call runs the sampler once
+    with dynamic scales, collecting each site's per-step max |activation|;
+    times `calib_margin` these are the static per-step scales of every
+    call, the first included, which returns the static-scale result on the
+    same draws (twin of the JAX package's DDNMInpainter).  A model without
+    w8a8 sites turns it off."""
 
     def __init__(self, model, t_sampling: int = 100, eta: float = 0.85,
-                 seed: int = 1234):
+                 seed: int = 1234, static_calib: bool = False,
+                 calib_margin: float = 1.3):
         self.model = model
         self.t_sampling = t_sampling
         self.eta = eta
         self.seed = seed
+        self.static_calib = bool(static_calib)
+        self.calib_margin = calib_margin
+        self.act_scales: Optional[torch.Tensor] = None
 
     def inpaint(self, masked_imgs, masks, generator=None):
         if generator is None:
             generator = torch.Generator(device=masked_imgs.device)
             generator.manual_seed(self.seed)
+        if self.static_calib and self.act_scales is None:
+            state = generator.get_state()
+            _, calib = ddnm_inpaint_batch(
+                self.model, masked_imgs, masks, generator, self.t_sampling,
+                self.eta, collect_calib=True)
+            generator.set_state(state)
+            if calib.shape[0]:
+                self.act_scales = (calib * self.calib_margin).float()
+            else:                         # no w8a8 sites
+                self.static_calib = False
         return ddnm_inpaint_batch(self.model, masked_imgs, masks, generator,
-                                  self.t_sampling, self.eta)
+                                  self.t_sampling, self.eta,
+                                  act_scales=self.act_scales)

@@ -16,16 +16,26 @@ at use, as flax does, so the parameters may be stored in it (inference:
 (`set_compute_dtype(bf16, keep_fp32_params=True)`).
 The public layout is the JAX package's: x [N, H, W, 3] -> eps [N, H, W, 6].
 Attention runs on K2 (`attention.attention_qkv`).
+
+w8a8 (`UNetModel(quant=True)`, or `quantize_unet_` on an fp32 model): the
+torso's convolutions and attention projections become `QConv8` /
+`QDense8`, at the JAX package's sites (unet.py:66-126, `_FP_MODULES`):
+int8 weights per output channel, per-tensor int8 activations, on K7
+(quantize) and K8 (int8 implicit-GEMM conv) of `kernels/quant.py`.  The
+activation scales follow `ActScales`: dynamic, collected per step into a
+device table, or static from such a table, indexed by the step the sampler
+sets (no host sync).
 """
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...kernels.quant import act_scale, int8_conv, quantize, quantize_act
 from .attention import attention_qkv
 
 
@@ -84,9 +94,86 @@ def _group_norm(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
                         norm.bias.float(), norm.eps)
 
 
-def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
+class ActScales:
+    """The activation scales of a w8a8 model's sites, shared by all of
+    them: `mode` 'dynamic' (max |x| of each call), 'collect' (dynamic, the
+    amax written to `table[site, step]`) or 'static' (`table[site, step]`
+    is the amax).  `table` is a device fp32 [n_sites, n_steps] and `step`
+    a host int the sampler sets: each site reads or writes a one-element
+    view of the table, so a loop over steps syncs nothing."""
+
+    def __init__(self, n_sites: int = 0):
+        self.n_sites = n_sites
+        self.set("dynamic")
+
+    def set(self, mode: str, table: Optional[torch.Tensor] = None,
+            step: int = 0) -> None:
+        if mode not in ("dynamic", "collect", "static"):
+            raise ValueError(f"unknown activation-scale mode {mode!r}")
+        if (mode == "dynamic") != (table is None):
+            raise ValueError(f"mode {mode!r} with table {table is not None}")
+        if table is not None and table.shape[0] != self.n_sites:
+            raise ValueError(f"scale table {tuple(table.shape)} for "
+                             f"{self.n_sites} sites")
+        self.mode, self.table, self.step = mode, table, step
+
+    def slot(self, site: int) -> Optional[torch.Tensor]:
+        if self.table is None:
+            return None
+        return self.table[site, self.step:self.step + 1]
+
+
+class QConv8(nn.Module):
+    """w8a8 convolution (twin of the JAX QConv8): `kernel_q` int8
+    [Cout, kh, kw, Cin], `kernel_s` fp32 [Cout] (per-output-channel
+    max |w| / 127), `bias` fp32 [Cout]; K7 quantizes the input with a
+    per-tensor scale, K8 convolves in int32 and dequantizes to the compute
+    dtype.  Writes NCHW, or rows [B*Ho*Wo, Cout] (`rows=True`)."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1, device=None):
+        super().__init__()
+        k = kernel_size
+        self.kernel_size, self.stride, self.padding = k, stride, padding
+        self.kernel_q = nn.Parameter(torch.zeros(
+            (cout, k, k, cin), dtype=torch.int8, device=device),
+            requires_grad=False)
+        self.kernel_s = nn.Parameter(torch.ones(cout, device=device),
+                                     requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(cout, device=device),
+                                 requires_grad=False)
+        self.site, self.scales = -1, None    # set by the UNetModel
+
+    def forward(self, x, dtype, channels_last: bool = False,
+                rows: bool = False):
+        sc = self.scales
+        static = sc.slot(self.site) if sc.mode == "static" else None
+        calib = sc.slot(self.site) if sc.mode == "collect" else None
+        xq, ax = quantize_act(x, channels_last, static, calib)
+        # an NCHW conv input keeps its H x W; a dense layer's rows are
+        # B x S x 1 pixels
+        h, w = (x.shape[2], x.shape[3]) \
+            if x.dim() == 4 and not channels_last else (xq.shape[1], 1)
+        k = self.kernel_size
+        return int8_conv(xq.view(x.shape[0], h, w, -1),
+                         self.kernel_q.view(self.kernel_q.shape[0], -1), ax,
+                         self.kernel_s, self.bias, k, k, self.stride,
+                         self.padding, dtype, rows)
+
+
+class QDense8(QConv8):
+    """w8a8 dense layer (the attention's qkv / proj), a 1x1 QConv8 over
+    [B, C, T] (or channels last [B, T, C]); `kernel_q` [Cout, 1, 1, Cin]."""
+
+    def __init__(self, cin: int, cout: int, device=None):
+        super().__init__(cin, cout, 1, 1, 0, device)
+
+
+def _conv(conv, x: torch.Tensor, dtype) -> torch.Tensor:
     """The conv in `dtype`: input, weight and bias cast at use (no-ops when
-    the weights are stored in `dtype`)."""
+    the weights are stored in `dtype`); a QConv8 quantizes x itself."""
+    if isinstance(conv, QConv8):
+        return conv(x, dtype)
     return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
                     conv.stride, conv.padding)
 
@@ -158,6 +245,12 @@ class AttentionBlock(nn.Module):
     def forward(self, x, dtype):
         b, c, hh, ww = x.shape
         y = _group_norm(self.norm, x.reshape(b, c, hh * ww)).to(dtype)
+        if isinstance(self.qkv, QDense8):
+            # K8 writes qkv as rows (K2's packed [b,t,3c]) and proj as NCHW
+            qkv = self.qkv(y, dtype, rows=True).view(b, hh * ww, 3 * c)
+            a = attention_qkv(qkv, self.num_heads)            # [b,t,c]
+            out = self.proj_out(a, dtype, channels_last=True)  # [b,c,t]
+            return x + out.reshape(b, c, hh, ww).to(x.dtype)
         y = y.transpose(1, 2)                                  # [b,t,c]
         qkv = F.linear(y, self.qkv.weight[:, :, 0].to(dtype),
                        self.qkv.bias.to(dtype))
@@ -194,7 +287,8 @@ class UNetModel(nn.Module):
                  attention_ds: Sequence[int] = (8, 16, 32),
                  num_head_channels: int = 64,
                  use_scale_shift_norm: bool = True,
-                 resblock_updown: bool = True, in_channels: int = 3):
+                 resblock_updown: bool = True, in_channels: int = 3,
+                 quant: bool = False):
         super().__init__()
         self.model_channels = model_channels
         self.channel_mult = tuple(channel_mult)
@@ -251,6 +345,10 @@ class UNetModel(nn.Module):
             self.output_blocks.append(mods)
         self.out = nn.Sequential(nn.GroupNorm(32, ch), nn.SiLU(),
                                  nn.Conv2d(ch, out_channels, 3, padding=1))
+        self.quant = False
+        self.act_scales = ActScales()
+        if quant:
+            _install_sites(self, lambda mod: _qsite_like(mod))
 
     def set_compute_dtype(self, dtype: torch.dtype,
                           keep_fp32_params: bool = False) -> "UNetModel":
@@ -300,9 +398,136 @@ class UNetModel(nn.Module):
         return h.permute(0, 2, 3, 1)
 
 
-def imagenet256_unet() -> UNetModel:
-    """The demo's exact model (imagenet_256.yml:14-33), 552.8M params."""
-    return UNetModel()
+def imagenet256_unet(quant: bool = False) -> UNetModel:
+    """The demo's exact model (imagenet_256.yml:14-33), 552.8M params;
+    `quant` for its w8a8 torso."""
+    return UNetModel(quant=quant)
+
+
+# ---------------------------------------------------------------------------
+# w8a8 sites and the weight transform
+
+# per block type: (attribute, index in it, the JAX module name) of each
+# site; everything else (time embeddings, the blocks' emb projections, the
+# first and the last conv) stays floating point, as `_FP_MODULES` and the
+# top-level exemptions of the JAX `quantize_unet_params` keep it
+_SITE_ATTRS = {
+    ResBlock: (("in_layers", 2, "in_conv"), ("out_layers", 3, "out_conv"),
+               ("skip_connection", None, "skip")),
+    AttentionBlock: (("qkv", None, "qkv"), ("proj_out", None, "proj")),
+    Downsample: (("op", None, "conv"),),
+    Upsample: (("conv", None, "conv"),),
+}
+
+
+def _jax_block_name(name: str) -> str:
+    """'input_blocks.3.0' -> 'input_3_0', 'middle_block.1' -> 'middle_1'."""
+    head, *idx = name.split(".")
+    return "_".join([head.split("_")[0]] + idx)
+
+
+def quant_sites(model: UNetModel) -> Iterator[Tuple[nn.Module, str,
+                                                    Optional[int], str,
+                                                    Tuple[str, str]]]:
+    """Every w8a8 site of the model in module order: (block, attribute,
+    index or None, the port's module name, the JAX package's path
+    (block, module)).  The site's module is `getattr(block, attribute)`
+    (indexed): an nn.Conv2d / nn.Conv1d in an fp model, a QConv8 /
+    QDense8 in a quantized one."""
+    for name, mod in model.named_modules():
+        for attr, idx, jname in _SITE_ATTRS.get(type(mod), ()):
+            target = getattr(mod, attr)
+            if idx is not None:
+                target = target[idx]
+            if isinstance(target, nn.Identity):
+                continue
+            port = f"{name}.{attr}" + ("" if idx is None else f".{idx}")
+            yield mod, attr, idx, port, (_jax_block_name(name), jname)
+
+
+def _site_module(block, attr, idx):
+    target = getattr(block, attr)
+    return target if idx is None else target[idx]
+
+
+def _qsite_like(mod: nn.Module) -> QConv8:
+    """An empty QConv8 / QDense8 with the shape of an fp site."""
+    dev = mod.weight.device
+    if isinstance(mod, nn.Conv1d):
+        return QDense8(mod.in_channels, mod.out_channels, device=dev)
+    return QConv8(mod.in_channels, mod.out_channels, mod.kernel_size[0],
+                  mod.stride[0], mod.padding[0], device=dev)
+
+
+def _install_sites(model: UNetModel, make) -> UNetModel:
+    """Replace every site's module by make(module), number the sites and
+    bind them to the model's ActScales."""
+    sites = list(quant_sites(model))
+    for n, (block, attr, idx, _, _) in enumerate(sites):
+        new = make(_site_module(block, attr, idx))
+        new.site, new.scales = n, model.act_scales
+        if idx is None:
+            setattr(block, attr, new)
+        else:
+            getattr(block, attr)[idx] = new
+    model.act_scales.n_sites = len(sites)
+    model.quant = True
+    return model
+
+
+def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel int8 of an fp weight [Cout, ...] (the JAX
+    `quantize_unet_params` formula, in fp32): s = max(max |w|, 1e-12) /
+    127 over everything but Cout, q = clip(round(w / s), -127, 127) -- the
+    activations' formula with one scale a channel."""
+    wf = w.float()
+    s = act_scale(wf.abs().amax(dim=tuple(range(1, wf.dim()))))
+    return quantize(wf, s.view(-1, *([1] * (wf.dim() - 1)))), s
+
+
+@torch.no_grad()
+def quantize_unet_(model: UNetModel) -> UNetModel:
+    """fp UNet -> its w8a8 twin, in place (twin of the JAX
+    `quantize_unet_params`): each site's weight becomes `kernel_q` int8
+    [Cout, kh, kw, Cin] and `kernel_s` from its fp32 values (quantize
+    before `set_compute_dtype` casts the torso to bf16), the bias fp32."""
+    if model.quant:
+        raise ValueError("the model is quantized already")
+
+    def make(mod):
+        q = _qsite_like(mod)
+        w = mod.weight.float()
+        if w.dim() == 3:                   # Conv1d [O, I, 1]
+            w = w[..., None]
+        kq, ks = quantize_weight(w)
+        q.kernel_q.copy_(kq.permute(0, 2, 3, 1))
+        q.kernel_s.copy_(ks)
+        q.bias.copy_(mod.bias.float())
+        return q
+
+    return _install_sites(model, make)
+
+
+@torch.no_grad()
+def calibrate_act_scales(model: UNetModel, xs, ts,
+                         margin: float = 1.3) -> torch.Tensor:
+    """Static activation scales of a w8a8 model (twin of the JAX
+    `calibrate_act_scales`): each site's max |activation| over the
+    calibration inputs (dynamic scales), times `margin`, as a [n_sites, 1]
+    table for `model.act_scales.set('static', table)`."""
+    xs, ts = list(xs), list(ts)
+    if not xs:
+        raise ValueError("calibrate_act_scales: empty calibration input")
+    sc = model.act_scales
+    table = torch.zeros((sc.n_sites, len(xs)), dtype=torch.float32,
+                        device=xs[0].device)
+    try:
+        for i, (x, t) in enumerate(zip(xs, ts)):
+            sc.set("collect", table, i)
+            model(x, t)
+    finally:
+        sc.set("dynamic")
+    return (table.amax(1, keepdim=True) * margin).float()
 
 
 _ZERO_INIT = ("out_layers.3", "proj_out")

@@ -27,6 +27,7 @@ from .. import io as pio
 from ..camera import CameraRig, make_camera_rig
 from ..config import PipelineConfig
 from ..log import StageTimer, get_logger
+from ..ops import image as oimg
 from ..ops import raster as orast
 from . import complete as pcomplete
 from . import export as pexport
@@ -64,6 +65,23 @@ def _pad_points(xyz: np.ndarray, colors: np.ndarray, step: int = 4096):
     return xyz_p, col_p, mask
 
 
+def load_gt_views(path: str, n_views: int, res: int,
+                  device) -> torch.Tensor:
+    """`<path>/<i>_inpainted.png`, else `<path>/<i>.png`, for each view, as
+    [V, res, res, 3] in [0, 1]; resized with jax.image.resize's 'linear'
+    weights when their size is another."""
+    imgs = []
+    for i in range(n_views):
+        p = os.path.join(path, f"{i}_inpainted.png")
+        if not os.path.exists(p):
+            p = os.path.join(path, f"{i}.png")
+        imgs.append(pio.load_rgb(p))
+    views = torch.as_tensor(np.stack(imgs), device=device)
+    if views.shape[1] != res:
+        views = oimg.resize_linear_hwc(views, (res, res))
+    return views
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on; CUDA must be present when asked
     for (there is no silent continuation on the CPU)."""
@@ -96,10 +114,10 @@ class Pipeline:
         'nearest' with a warning, as the JAX package does.  `unet_kwargs`
         builds another UNetModel than the 552.8M flagship (the CPU tests'
         tiny one).  The UNet computes in bf16 on the card and in fp32 on
-        the CPU; POCO (geo_from 'POCO' with a `poco_checkpoint`) in fp32."""
+        the CPU; POCO (geo_from 'POCO' with a `poco_checkpoint`) in fp32.
+        `ddnm_quant_int8` builds the w8a8 UNet (`ddnm_quant_static`: static
+        per-step activation scales, calibrated on the first shape)."""
         dev = resolve_device(device)
-        if cfg.ddnm_quant_int8:
-            raise NotImplementedError("w8a8 DDNM: a later port slice")
         logger = get_logger(log_file)
         rig = make_camera_rig(cfg.view_num, cfg.cam_distance, cfg.cam_res,
                               cfg.cam_fov_deg, cfg.camera_distribution,
@@ -114,7 +132,9 @@ class Pipeline:
                 inpainter = load_inpainter(cfg.diffusion_checkpoint, logger,
                                            device=dev,
                                            model_kwargs=unet_kwargs,
-                                           dtype=dtype)
+                                           dtype=dtype,
+                                           quant_int8=cfg.ddnm_quant_int8,
+                                           quant_static=cfg.ddnm_quant_static)
             else:
                 logger.warning(
                     "texture_gen_method=DDNM_inpaint but no "
@@ -236,8 +256,7 @@ class Pipeline:
                     n_total=len(xyz_p), depth_guard=cfg.hpr_depth_guard,
                     precomputed=hpr_future.result())
             if cfg.refine_point_validation_by_remove_abnormal_depth:
-                raise NotImplementedError(
-                    "refine_point_validation: a later port slice")
+                proj = pproject.refine_point_validation(proj, cfg.refine_res)
             sparse = pproject.make_sparse_images(
                 proj, colors, cfg.res, cfg.point_size, cfg.edge_point_size,
                 cfg.mask_ratio_thresh)
@@ -252,8 +271,17 @@ class Pipeline:
             cached = [os.path.join(others_dir, f"{i}_inpainted.png")
                       for i in range(self.rig.num_views)]
             if cfg.gt_views_path:
-                raise NotImplementedError("gt_views_path: a later port slice")
-            if all(os.path.exists(p) for p in cached):
+                # dense views rendered beforehand stand in for the
+                # inpainted ones (reference use_GT_multi_view_img)
+                if cfg.crop_img and log:
+                    log.warning("gt_views_path with crop_img=True: the "
+                                "pre-rendered views must match the crop "
+                                "frame exactly; use crop_img: false")
+                inpainted = load_gt_views(cfg.gt_views_path,
+                                          self.rig.num_views, cfg.res, dev)
+                # dense renders carry no shrink-to-fit rescale
+                scale_factors = torch.ones_like(scale_factors)
+            elif all(os.path.exists(p) for p in cached):
                 inpainted = torch.as_tensor(
                     np.stack([pio.load_rgb(p) for p in cached]), device=dev)
             else:

@@ -87,6 +87,30 @@ def add_hpr_visibility(proj: ProjectionData, points_np: np.ndarray,
     return proj._replace(point_validation=proj.point_validation | hpr_t)
 
 
+def refine_point_validation(proj: ProjectionData, refine_res: int = 512,
+                            window: int = 5,
+                            depth_slack: float = 0.03) -> ProjectionData:
+    """Drop the points whose depth lies abnormally far behind their
+    neighbourhood (twin of the JAX `refine_point_validation`; the
+    reference's refine_point_validation_by_remove_abnormal_depth, off by
+    default): per view, the valid points' depths min-splatted at
+    `refine_res`, a `window` x `window` local minimum (empty pixels at
+    1e6), and a point stays valid where depth <= local min + slack."""
+    V, N, _ = proj.point_uvs.shape
+    R = refine_res
+    pix = (proj.point_uvs * R).clamp(0, R - 1).to(torch.int32).long()
+    flat = pix[..., 1] * R + pix[..., 0]                       # [V, N]
+    d = torch.where(proj.point_validation, proj.point_depths,
+                    torch.full_like(proj.point_depths, float("inf")))
+    img = torch.full((V, R * R), float("inf"), device=d.device)
+    img.scatter_reduce_(1, flat, d, "amin")
+    img = torch.where(torch.isfinite(img), img, torch.full_like(img, 1e6))
+    local_min = -oimg.dilate(-img.reshape(V, R, R), window)
+    ref = torch.gather(local_min.reshape(V, R * R), 1, flat)
+    return proj._replace(point_validation=proj.point_validation
+                         & (proj.point_depths <= ref + depth_slack))
+
+
 class SparseImages(NamedTuple):
     sparse_imgs: torch.Tensor    # [V, res, res, 3]
     hard_mask0: torch.Tensor     # [V, res, res] foreground mask (shrunk)

@@ -54,7 +54,8 @@ def test_port_imports_nothing_forbidden():
                 "models/perception/convert.py", "pipeline/batch.py",
                 "cli/render_meshes.py", "cli/run_evaluation.py",
                 "cli/eval_meshes.py", "cli/eval_point2surf.py",
-                "cli/geometry_table.py"):
+                "cli/geometry_table.py", "kernels/quant.py",
+                "cli/w8a8_fidelity.py"):
         assert os.path.join("pointdreamer_tpu_torch", mod) in scanned
     for path in _port_sources():
         with open(path) as fh:
@@ -94,7 +95,7 @@ def test_create_without_a_device_needs_cuda():
                                   "run_dataset", "run_roundtrip",
                                   "render_meshes", "run_evaluation",
                                   "eval_meshes", "eval_point2surf",
-                                  "geometry_table"])
+                                  "geometry_table", "w8a8_fidelity"])
 def test_helpers_without_a_device_need_cuda(call, tmp_path):
     # the helpers an entry point calls default to device='cuda' too
     if torch.cuda.is_available():
@@ -105,7 +106,8 @@ def test_helpers_without_a_device_need_cuda(call, tmp_path):
                                             generate, geometry_table,
                                             render_meshes, run_evaluation,
                                             train_ddnm_synthetic,
-                                            train_poco_synthetic)
+                                            train_poco_synthetic,
+                                            w8a8_fidelity)
     from pointdreamer_tpu_torch.eval import render, run_evaluation as reval
     from pointdreamer_tpu_torch.eval.selfparity import run_roundtrip
     from pointdreamer_tpu_torch.models import perception
@@ -151,7 +153,9 @@ def test_helpers_without_a_device_need_cuda(call, tmp_path):
                ["--pred_root", "x", "--gt_root", "y"]),
            "eval_point2surf": lambda: eval_point2surf.main(
                ["--gendir", "x", "--gtdir", "y"]),
-           "geometry_table": lambda: geometry_table.main(["--data", "x"])}
+           "geometry_table": lambda: geometry_table.main(["--data", "x"]),
+           "w8a8_fidelity": lambda: w8a8_fidelity.main(
+               ["--pc_file", "x.ply", "--calib_pc", "y.ply"])}
     with pytest.raises((RuntimeError, AssertionError),
                        match="CUDA|Torch not compiled"):
         run[call]()

@@ -371,9 +371,10 @@ def test_slice_without_cached_mesh_matches_jax_pipeline(tmp_path,
 
 
 def test_quant_int8_is_refused(monkeypatch):
-    # the port has no w8a8 UNet yet: ddnm_quant_int8 raises before any
-    # inpainter is built, where the JAX package would build the w8a8 one;
-    # ddnm_quant_static alone changes nothing, as in the JAX package
+    # the name dates from the slice that refused the flag; since the w8a8
+    # UNet is ported, ddnm_quant_int8 reaches load_inpainter as the JAX
+    # package passes it (quant_int8, quant_static), and without it the
+    # inpainter is the fp one, whatever ddnm_quant_static says
     import pointdreamer_tpu_torch.models.diffusion as tdiff
 
     built = []
@@ -384,10 +385,14 @@ def test_quant_int8_is_refused(monkeypatch):
 
     monkeypatch.setattr(tdiff, "load_inpainter", spy)
     cfg = tload(os.path.join(REPO, "configs", "default.yaml"))
-    cfg.ddnm_quant_int8, cfg.ddnm_quant_static = True, True
-    with pytest.raises(NotImplementedError, match="w8a8"):
-        TPipeline.create(cfg, device="cpu", allow_random_diffusion=True)
-    assert built == []
-    cfg.ddnm_quant_int8 = False
+    for static in (True, False):
+        cfg.ddnm_quant_int8, cfg.ddnm_quant_static = True, static
+        pipe = TPipeline.create(cfg, device="cpu",
+                                allow_random_diffusion=True)
+        assert pipe.inpainter == "inpainter"
+        assert built[-1]["quant_int8"] is True
+        assert built[-1]["quant_static"] is static
+    cfg.ddnm_quant_int8, cfg.ddnm_quant_static = False, True
     pipe = TPipeline.create(cfg, device="cpu", allow_random_diffusion=True)
-    assert pipe.inpainter == "inpainter" and len(built) == 1
+    assert pipe.inpainter == "inpainter" and len(built) == 3
+    assert built[-1]["quant_int8"] is False

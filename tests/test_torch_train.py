@@ -220,5 +220,15 @@ def test_cli_prints_its_table_on_cpu(tmp_path, capsys):
     assert set(table) == {"DDNM(self-trained)", "nearest(jump-flood)",
                           "linear(pull-push)"}
     assert rc in (0, 1) and os.path.exists(tmp_path / "c.pkl")
-    with pytest.raises(NotImplementedError, match="Queue A3"):
-        tcli.main(["--device", "cpu", "--quant-fidelity"])
+    # --quant-fidelity (refused before the w8a8 UNet was ported): the
+    # trained weights' int8 twin on the fp sampler's draws, as the JAX CLI
+    rc = tcli.main(["--device", "cpu", "--res", "16", "--eval-images", "2",
+                    "--t-sampling", "2", "--skip-train", "--ckpt",
+                    str(tmp_path / "c.pkl"), "--quant-fidelity"])
+    out = capsys.readouterr().out
+    quant = json.loads(out[out.index("{"):])
+    assert set(quant) == set(table) | {
+        "int8-dynamic PSNR vs fp sampler", "int8-static PSNR vs fp sampler",
+        "DDNM(int8-dynamic)", "DDNM(int8-static)"}
+    assert quant["DDNM(self-trained)"] == table["DDNM(self-trained)"]
+    assert all(np.isfinite(v) for v in quant.values()) and rc in (0, 1)
