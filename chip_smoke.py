@@ -1564,7 +1564,9 @@ K8_SHAPES = (
 def check_quant(dev, gen) -> list:
     """Phase 9 (a): K7 and K8 against their plain versions at K8_SHAPES
     (bf16 activations): K7's int8 output, ax and the amax it records bit
-    for bit, K8 within one bf16 ulp at every element.  Prints for each
+    for bit, also with a static amax from a scale table, and channels last
+    at the attention's proj shape; K8 within one bf16 ulp at every
+    element, also from those rows to NCHW.  Prints for each
     shape the wrapper's and the device (CUDA graph) ms of both, their
     bounds, the plain versions' ms, the library's int8 product
     (torch._int_mm; for a conv after F.unfold) and bf16 F.conv2d
@@ -1583,6 +1585,16 @@ def check_quant(dev, gen) -> list:
                     max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
                     library_ms=0.0, bytes=0.0, ops=0.0)
             for n, line in (("quantize_act", 92), ("int8_conv", 95))}
+
+    def k7_same(what, x, channels_last, static):
+        q, ax = kq.quantize_act(x, channels_last, static)
+        q_p, ax_p = kq.quantize_act_plain(x, channels_last, static)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, q_p) and torch.equal(ax, ax_p)):
+            fail(f"K7 {what}: {int((q != q_p).sum())} int8 entries, ax "
+                 f"{float(ax)} vs {float(ax_p)}")
+        return q, ax
+
     for what, B, Cin, H, W, N, k, s, as_rows in K8_SHAPES:
         pad = 1 if k == 3 else 0
         x = (torch.randn((B, Cin, H, W), generator=gen, device=dev) * 1.7
@@ -1597,6 +1609,11 @@ def check_quant(dev, gen) -> list:
             fail(f"K7 {what}: {int((q != q_p).sum())} int8 entries, ax "
                  f"{float(ax)} vs {float(ax_p)}, amax {float(slot[1])} vs "
                  f"{float(amax_p)}")
+        # static scales, as the recon runs K7: a one-element view into a
+        # [sites, steps] table, below max |x| (entries saturate)
+        table = torch.zeros((3, 4), device=dev)
+        table[1, 2] = amax_p * 0.7
+        k7_same(f"{what}, static", x, False, table[1, 2:3])
         xq = q.view(B, H, W, Cin)
         wq = torch.randint(-127, 128, (N, k * k * Cin), generator=gen,
                            device=dev, dtype=torch.int8)
@@ -1674,6 +1691,31 @@ def check_quant(dev, gen) -> list:
             r["max_abs_err"] = max(r["max_abs_err"], e)
         del x, q, q_p, xq, wq, y, y_p, err, xc, wb
         torch.cuda.empty_cache()
+    # the attention's proj: K7 channels last (the [b, t, c] K2 writes),
+    # dynamic and static, and K8 from those rows back to NCHW
+    B, T, C = 8, 1024, 512
+    x = (torch.randn((B, T, C), generator=gen, device=dev) * 1.7
+         + 0.2).to(torch.bfloat16)
+    table = torch.zeros((3, 4), device=dev)
+    table[2, 1] = x.float().abs().amax() * 0.7
+    k7_same("proj 512->512 rows, static", x, True, table[2, 1:2])
+    q, ax = k7_same("proj 512->512 rows", x, True, None)
+    wq = torch.randint(-127, 128, (C, C), generator=gen, device=dev,
+                       dtype=torch.int8)
+    ks = torch.rand(C, generator=gen, device=dev) * 2e-3 + 1e-4
+    bias = torch.randn(C, generator=gen, device=dev) * 0.1
+    args = (q.view(B, T, 1, C), wq, ax, ks, bias, 1, 1, 1, 0,
+            torch.bfloat16, False)
+    y = kq.int8_conv(*args)
+    y_p = kq.int8_conv_plain(*args).float()
+    ulps = float(((y.float() - y_p).abs() / bf16_ulp(y_p)).max())
+    print(f"[K7 quantize_act] proj 512->512 over 8x32^2 rows (channels "
+          f"last): bit-equal, dynamic and static; [K8 int8_conv] to NCHW "
+          f"{list(y.shape)}: {ulps:.3g} bf16 ulp")
+    if not ulps <= 1.0:
+        fail(f"K8 proj 512->512 to NCHW: {ulps} bf16 ulps from its plain "
+             f"version")
+    del x, q, wq, y, y_p
     out = []
     for n, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("ops"),
@@ -1720,7 +1762,7 @@ def w8a8_recon(ply: str, work: str, cfg_path: str, bf16_out: str,
     t0 = time.perf_counter()
     pipe = Pipeline.create(cfg, device="cuda", allow_random_diffusion=True)
     unet = pipe.inpainter.model
-    n_sites = unet.act_scales.n_sites
+    n_sites = unet.n_sites
     n_int8 = sum(p.numel() for p in unet.parameters()
                  if p.dtype == torch.int8)
     print(f"[w8a8] UNet w8a8: {n_sites} sites, {n_int8} int8 weights, "

@@ -162,12 +162,6 @@ def main(argv=None):
                          "sampler's own distance from it")
     ap.add_argument("--calib_margin", type=float, default=None,
                     help="override DDNMInpainter's static-scale margin")
-    ap.add_argument("--unet_kwargs", default=None,
-                    help="JSON of UNetModel arguments (default: the "
-                         "552.8M flagship)")
-    ap.add_argument("--res", type=int, default=None)
-    ap.add_argument("--cam_res", type=int, default=None)
-    ap.add_argument("--grid_res", type=int, default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -179,9 +173,6 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = PipelineConfig(geo_from="SPR")
-    for k in ("res", "cam_res", "grid_res"):
-        if getattr(args, k) is not None:
-            setattr(cfg, k, getattr(args, k))
     t0 = time.time()
     if args.pc_file is None or args.calib_pc is None:
         cube, sphere = _default_clouds(args.cache_dir)
@@ -192,9 +183,8 @@ def main(argv=None):
                                            args.cache_dir)
     print(f"sparse views ready ({time.time() - t0:.1f}s)", flush=True)
 
-    kwargs = json.loads(args.unet_kwargs) if args.unet_kwargs else None
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    fp32 = build_unet(dev, torch.float32, model_kwargs=kwargs)
+    fp32 = build_unet(dev, torch.float32)
     perturb_(fp32)
     model_fp = copy.deepcopy(fp32).set_compute_dtype(dtype)
     qmodel = quantize_unet_(copy.deepcopy(fp32)).set_compute_dtype(dtype)

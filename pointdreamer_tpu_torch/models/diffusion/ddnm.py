@@ -11,15 +11,19 @@ with eta 0.85, linear betas 1e-4..0.02 over 1000 steps, 100 sampling steps.
 A w8a8 model (`UNetModel.quant`) runs with dynamic activation scales, or
 collects each site's per-step max |activation| into a device table
 [n_sites, n_steps], or reads static per-step scales from such a table:
-the sampler sets the step index before each forward (the JAX sampler's
-per-step `act_scales` scan input and `calib` scan output).
+the sampler passes each forward its step's `ActScales` (the JAX sampler's
+per-step `act_scales` scan input and `calib` scan output), so calls on
+other threads that share the model do not meet.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import numpy as np
 import torch
+
+from .unet import DYNAMIC, ActScales
 
 
 def make_betas(num_timesteps: int = 1000, beta_start: float = 1e-4,
@@ -85,34 +89,29 @@ def ddnm_inpaint_batch(model, masked_imgs: torch.Tensor,
         return torch.randn((B, H, W, 3), generator=generator, device=dev,
                            dtype=torch.float32)
 
-    scales = getattr(model, "act_scales", None)
-    n_sites = scales.n_sites if scales is not None else 0
+    n_sites = model.n_sites
     calib = (torch.zeros((n_sites, len(pairs)), dtype=torch.float32,
                          device=dev) if collect_calib else None)
-    if n_sites and act_scales is not None:
-        scales.set("static", act_scales)
-    elif n_sites and collect_calib:
-        scales.set("collect", calib)
-    try:
-        x = noise[0] if noise is not None else draw()
-        for s in range(len(pairs)):
-            if n_sites:
-                scales.step = s
-            z = noise[1 + s] if noise is not None else draw()
-            at = torch.tensor(at_arr[s], device=dev)
-            at_next = torch.tensor(at_next_arr[s], device=dev)
-            t = torch.full((B,), float(i_steps[s]), device=dev)
-            et = model(x, t)[..., :3].float()
-            x0_t = (x - et * torch.sqrt(1.0 - at)) / torch.sqrt(at)
-            sigma_t = torch.sqrt(1.0 - at_next ** 2)
-            x0_hat = x0_t - (x0_t * masks - y)
-            c1 = torch.sqrt(1.0 - at_next) * eta
-            c2 = torch.sqrt(1.0 - at_next) * torch.sqrt(
-                torch.tensor(1.0 - eta ** 2, device=dev))
-            x = torch.sqrt(at_next) * x0_hat + sigma_t * (c1 * z + c2 * et)
-    finally:
-        if n_sites:
-            scales.set("dynamic")
+    x = noise[0] if noise is not None else draw()
+    for s in range(len(pairs)):
+        if n_sites and act_scales is not None:
+            scales = ActScales("static", act_scales, s)
+        elif n_sites and collect_calib:
+            scales = ActScales("collect", calib, s)
+        else:
+            scales = DYNAMIC
+        z = noise[1 + s] if noise is not None else draw()
+        at = torch.tensor(at_arr[s], device=dev)
+        at_next = torch.tensor(at_next_arr[s], device=dev)
+        t = torch.full((B,), float(i_steps[s]), device=dev)
+        et = model(x, t, scales)[..., :3].float()
+        x0_t = (x - et * torch.sqrt(1.0 - at)) / torch.sqrt(at)
+        sigma_t = torch.sqrt(1.0 - at_next ** 2)
+        x0_hat = x0_t - (x0_t * masks - y)
+        c1 = torch.sqrt(1.0 - at_next) * eta
+        c2 = torch.sqrt(1.0 - at_next) * torch.sqrt(
+            torch.tensor(1.0 - eta ** 2, device=dev))
+        x = torch.sqrt(at_next) * x0_hat + sigma_t * (c1 * z + c2 * et)
     out = ((x + 1.0) / 2.0).clamp(0.0, 1.0)
     return (out, calib) if collect_calib else out
 
@@ -127,7 +126,8 @@ class DDNMInpainter:
     times `calib_margin` these are the static per-step scales of every
     call, the first included, which returns the static-scale result on the
     same draws (twin of the JAX package's DDNMInpainter).  A model without
-    w8a8 sites turns it off."""
+    w8a8 sites turns it off.  Threads may share an inpainter: one of them
+    calibrates, the others wait for its scales."""
 
     def __init__(self, model, t_sampling: int = 100, eta: float = 0.85,
                  seed: int = 1234, static_calib: bool = False,
@@ -139,21 +139,27 @@ class DDNMInpainter:
         self.static_calib = bool(static_calib)
         self.calib_margin = calib_margin
         self.act_scales: Optional[torch.Tensor] = None
+        self._calib_lock = threading.Lock()
 
     def inpaint(self, masked_imgs, masks, generator=None):
         if generator is None:
             generator = torch.Generator(device=masked_imgs.device)
             generator.manual_seed(self.seed)
         if self.static_calib and self.act_scales is None:
-            state = generator.get_state()
-            _, calib = ddnm_inpaint_batch(
-                self.model, masked_imgs, masks, generator, self.t_sampling,
-                self.eta, collect_calib=True)
-            generator.set_state(state)
-            if calib.shape[0]:
-                self.act_scales = (calib * self.calib_margin).float()
-            else:                         # no w8a8 sites
-                self.static_calib = False
+            with self._calib_lock:
+                if self.static_calib and self.act_scales is None:
+                    self._calibrate(masked_imgs, masks, generator)
         return ddnm_inpaint_batch(self.model, masked_imgs, masks, generator,
                                   self.t_sampling, self.eta,
                                   act_scales=self.act_scales)
+
+    def _calibrate(self, masked_imgs, masks, generator) -> None:
+        state = generator.get_state()
+        _, calib = ddnm_inpaint_batch(
+            self.model, masked_imgs, masks, generator, self.t_sampling,
+            self.eta, collect_calib=True)
+        generator.set_state(state)
+        if calib.shape[0]:
+            self.act_scales = (calib * self.calib_margin).float()
+        else:                             # no w8a8 sites
+            self.static_calib = False

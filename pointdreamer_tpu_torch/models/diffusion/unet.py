@@ -22,13 +22,14 @@ torso's convolutions and attention projections become `QConv8` /
 `QDense8`, at the JAX package's sites (unet.py:66-126, `_FP_MODULES`):
 int8 weights per output channel, per-tensor int8 activations, on K7
 (quantize) and K8 (int8 implicit-GEMM conv) of `kernels/quant.py`.  The
-activation scales follow `ActScales`: dynamic, collected per step into a
-device table, or static from such a table, indexed by the step the sampler
-sets (no host sync).
+activation scales follow the `ActScales` the forward is given: dynamic,
+collected per step into a device table, or static from such a table,
+indexed by the step the sampler passes (no host sync).
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -94,33 +95,34 @@ def _group_norm(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
                         norm.bias.float(), norm.eps)
 
 
+@dataclass(frozen=True)
 class ActScales:
-    """The activation scales of a w8a8 model's sites, shared by all of
-    them: `mode` 'dynamic' (max |x| of each call), 'collect' (dynamic, the
-    amax written to `table[site, step]`) or 'static' (`table[site, step]`
-    is the amax).  `table` is a device fp32 [n_sites, n_steps] and `step`
-    a host int the sampler sets: each site reads or writes a one-element
-    view of the table, so a loop over steps syncs nothing."""
+    """How a w8a8 forward scales its activations, passed down the forward
+    as the JAX package passes its `act_scales` variables and gathers its
+    `calib` collection: `mode` 'dynamic' (max |x| of each call), 'collect'
+    (dynamic, the amax written to `table[site, step]`) or 'static'
+    (`table[site, step]` is the amax).  `table` is a device fp32 [n_sites,
+    n_steps]: each site reads or writes a one-element view of it, so a
+    loop over steps syncs nothing.  The model keeps none of it, so
+    threads that share one model each pass their own."""
+    mode: str = "dynamic"
+    table: Optional[torch.Tensor] = None
+    step: int = 0
 
-    def __init__(self, n_sites: int = 0):
-        self.n_sites = n_sites
-        self.set("dynamic")
-
-    def set(self, mode: str, table: Optional[torch.Tensor] = None,
-            step: int = 0) -> None:
-        if mode not in ("dynamic", "collect", "static"):
-            raise ValueError(f"unknown activation-scale mode {mode!r}")
-        if (mode == "dynamic") != (table is None):
-            raise ValueError(f"mode {mode!r} with table {table is not None}")
-        if table is not None and table.shape[0] != self.n_sites:
-            raise ValueError(f"scale table {tuple(table.shape)} for "
-                             f"{self.n_sites} sites")
-        self.mode, self.table, self.step = mode, table, step
+    def __post_init__(self):
+        if self.mode not in ("dynamic", "collect", "static"):
+            raise ValueError(f"unknown activation-scale mode {self.mode!r}")
+        if (self.mode == "dynamic") != (self.table is None):
+            raise ValueError(f"mode {self.mode!r} with table "
+                             f"{self.table is not None}")
 
     def slot(self, site: int) -> Optional[torch.Tensor]:
         if self.table is None:
             return None
         return self.table[site, self.step:self.step + 1]
+
+
+DYNAMIC = ActScales()
 
 
 class QConv8(nn.Module):
@@ -142,13 +144,12 @@ class QConv8(nn.Module):
                                      requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(cout, device=device),
                                  requires_grad=False)
-        self.site, self.scales = -1, None    # set by the UNetModel
+        self.site = -1                       # set by the UNetModel
 
-    def forward(self, x, dtype, channels_last: bool = False,
-                rows: bool = False):
-        sc = self.scales
-        static = sc.slot(self.site) if sc.mode == "static" else None
-        calib = sc.slot(self.site) if sc.mode == "collect" else None
+    def forward(self, x, dtype, scales: ActScales = DYNAMIC,
+                channels_last: bool = False, rows: bool = False):
+        static = scales.slot(self.site) if scales.mode == "static" else None
+        calib = scales.slot(self.site) if scales.mode == "collect" else None
         xq, ax = quantize_act(x, channels_last, static, calib)
         # an NCHW conv input keeps its H x W; a dense layer's rows are
         # B x S x 1 pixels
@@ -169,11 +170,12 @@ class QDense8(QConv8):
         super().__init__(cin, cout, 1, 1, 0, device)
 
 
-def _conv(conv, x: torch.Tensor, dtype) -> torch.Tensor:
+def _conv(conv, x: torch.Tensor, dtype,
+          scales: ActScales = DYNAMIC) -> torch.Tensor:
     """The conv in `dtype`: input, weight and bias cast at use (no-ops when
     the weights are stored in `dtype`); a QConv8 quantizes x itself."""
     if isinstance(conv, QConv8):
-        return conv(x, dtype)
+        return conv(x, dtype, scales)
     return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
                     conv.stride, conv.padding)
 
@@ -211,13 +213,13 @@ class ResBlock(nn.Module):
         self.skip_connection = (nn.Identity() if channels == out_channels
                                 else nn.Conv2d(channels, out_channels, 1))
 
-    def forward(self, x, emb, dtype):
+    def forward(self, x, emb, dtype, scales: ActScales = DYNAMIC):
         h = F.silu(_group_norm(self.in_layers[0], x).to(dtype))
         if self.up:
             h, x = _nearest_up2(h), _nearest_up2(x)
         elif self.down:
             h, x = _avg_down2(h), _avg_down2(x)
-        h = _conv(self.in_layers[2], h, dtype)
+        h = _conv(self.in_layers[2], h, dtype, scales)
         emb_out = _linear(self.emb_layers[1], F.silu(emb), dtype)
         emb_out = emb_out[:, :, None, None]
         if self.use_scale_shift_norm:
@@ -226,9 +228,9 @@ class ResBlock(nn.Module):
                 + shift
         else:
             h = _group_norm(self.out_layers[0], h + emb_out).to(dtype)
-        h = _conv(self.out_layers[3], F.silu(h), dtype)
+        h = _conv(self.out_layers[3], F.silu(h), dtype, scales)
         if not isinstance(self.skip_connection, nn.Identity):
-            x = _conv(self.skip_connection, x, dtype)
+            x = _conv(self.skip_connection, x, dtype, scales)
         return x.to(dtype) + h
 
 
@@ -242,14 +244,16 @@ class AttentionBlock(nn.Module):
         self.qkv = nn.Conv1d(channels, 3 * channels, 1)
         self.proj_out = nn.Conv1d(channels, channels, 1)
 
-    def forward(self, x, dtype):
+    def forward(self, x, dtype, scales: ActScales = DYNAMIC):
         b, c, hh, ww = x.shape
         y = _group_norm(self.norm, x.reshape(b, c, hh * ww)).to(dtype)
         if isinstance(self.qkv, QDense8):
             # K8 writes qkv as rows (K2's packed [b,t,3c]) and proj as NCHW
-            qkv = self.qkv(y, dtype, rows=True).view(b, hh * ww, 3 * c)
+            qkv = self.qkv(y, dtype, scales, rows=True).view(
+                b, hh * ww, 3 * c)
             a = attention_qkv(qkv, self.num_heads)            # [b,t,c]
-            out = self.proj_out(a, dtype, channels_last=True)  # [b,c,t]
+            out = self.proj_out(a, dtype, scales,
+                                channels_last=True)           # [b,c,t]
             return x + out.reshape(b, c, hh, ww).to(x.dtype)
         y = y.transpose(1, 2)                                  # [b,t,c]
         qkv = F.linear(y, self.qkv.weight[:, :, 0].to(dtype),
@@ -265,8 +269,8 @@ class Downsample(nn.Module):
         super().__init__()
         self.op = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
 
-    def forward(self, x, dtype):
-        return _conv(self.op, x, dtype)
+    def forward(self, x, dtype, scales: ActScales = DYNAMIC):
+        return _conv(self.op, x, dtype, scales)
 
 
 class Upsample(nn.Module):
@@ -274,8 +278,8 @@ class Upsample(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(channels, channels, 3, padding=1)
 
-    def forward(self, x, dtype):
-        return _conv(self.conv, _nearest_up2(x), dtype)
+    def forward(self, x, dtype, scales: ActScales = DYNAMIC):
+        return _conv(self.conv, _nearest_up2(x), dtype, scales)
 
 
 class UNetModel(nn.Module):
@@ -346,7 +350,7 @@ class UNetModel(nn.Module):
         self.out = nn.Sequential(nn.GroupNorm(32, ch), nn.SiLU(),
                                  nn.Conv2d(ch, out_channels, 3, padding=1))
         self.quant = False
-        self.act_scales = ActScales()
+        self.n_sites = 0
         if quant:
             _install_sites(self, lambda mod: _qsite_like(mod))
 
@@ -367,16 +371,20 @@ class UNetModel(nn.Module):
         return self
 
     @staticmethod
-    def _run(mod, h, emb, dtype):
+    def _run(mod, h, emb, dtype, scales):
         if isinstance(mod, ResBlock):
-            return mod(h, emb, dtype)
+            return mod(h, emb, dtype, scales)
         if isinstance(mod, nn.Conv2d):
             return _conv(mod, h, dtype)
-        return mod(h, dtype)
+        return mod(h, dtype, scales)
 
-    def forward(self, x: torch.Tensor, timesteps: torch.Tensor
-                ) -> torch.Tensor:
-        """x [N, H, W, 3] float, timesteps [N] -> [N, H, W, out] fp32."""
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                scales: ActScales = DYNAMIC) -> torch.Tensor:
+        """x [N, H, W, 3] float, timesteps [N] -> [N, H, W, out] fp32;
+        `scales` for the w8a8 sites (a table of one row per site)."""
+        if scales.table is not None and scales.table.shape[0] != self.n_sites:
+            raise ValueError(f"scale table {tuple(scales.table.shape)} for "
+                             f"{self.n_sites} sites")
         dt = self.dtype
         emb = timestep_embedding(timesteps, self.model_channels)
         emb = _linear(self.time_embed[0], emb, dt)
@@ -385,14 +393,14 @@ class UNetModel(nn.Module):
         hs = []
         for mods in self.input_blocks:
             for mod in mods:
-                h = self._run(mod, h, emb, dt)
+                h = self._run(mod, h, emb, dt, scales)
             hs.append(h)
         for mod in self.middle_block:
-            h = self._run(mod, h, emb, dt)
+            h = self._run(mod, h, emb, dt, scales)
         for mods in self.output_blocks:
             h = torch.cat([h, hs.pop()], dim=1)
             for mod in mods:
-                h = self._run(mod, h, emb, dt)
+                h = self._run(mod, h, emb, dt, scales)
         h = F.silu(_group_norm(self.out[0], h))
         h = _conv(self.out[2], h, torch.float32)
         return h.permute(0, 2, 3, 1)
@@ -460,17 +468,17 @@ def _qsite_like(mod: nn.Module) -> QConv8:
 
 
 def _install_sites(model: UNetModel, make) -> UNetModel:
-    """Replace every site's module by make(module), number the sites and
-    bind them to the model's ActScales."""
+    """Replace every site's module by make(module) and number the sites
+    (their rows in a scale table)."""
     sites = list(quant_sites(model))
     for n, (block, attr, idx, _, _) in enumerate(sites):
         new = make(_site_module(block, attr, idx))
-        new.site, new.scales = n, model.act_scales
+        new.site = n
         if idx is None:
             setattr(block, attr, new)
         else:
             getattr(block, attr)[idx] = new
-    model.act_scales.n_sites = len(sites)
+    model.n_sites = len(sites)
     model.quant = True
     return model
 
@@ -514,19 +522,14 @@ def calibrate_act_scales(model: UNetModel, xs, ts,
     """Static activation scales of a w8a8 model (twin of the JAX
     `calibrate_act_scales`): each site's max |activation| over the
     calibration inputs (dynamic scales), times `margin`, as a [n_sites, 1]
-    table for `model.act_scales.set('static', table)`."""
+    table for `ActScales('static', table)`."""
     xs, ts = list(xs), list(ts)
     if not xs:
         raise ValueError("calibrate_act_scales: empty calibration input")
-    sc = model.act_scales
-    table = torch.zeros((sc.n_sites, len(xs)), dtype=torch.float32,
+    table = torch.zeros((model.n_sites, len(xs)), dtype=torch.float32,
                         device=xs[0].device)
-    try:
-        for i, (x, t) in enumerate(zip(xs, ts)):
-            sc.set("collect", table, i)
-            model(x, t)
-    finally:
-        sc.set("dynamic")
+    for i, (x, t) in enumerate(zip(xs, ts)):
+        model(x, t, ActScales("collect", table, i))
     return (table.amax(1, keepdim=True) * margin).float()
 
 

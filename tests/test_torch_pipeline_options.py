@@ -170,6 +170,21 @@ def _psnr(a, b):
     return 10 * np.log10(1.0 / max(float(((a - b) ** 2).mean()), 1e-20))
 
 
+def _tiny_quant_params():
+    """The tiny UNet's flax init plus the JAX w8a8 gates' +-0.02 wave on
+    every matrix (the zero-initialized out layers would make eps 0),
+    quantized by the JAX package, as numpy leaves."""
+    jm = junet.UNetModel(dtype=jnp.float32, **TINY)
+    params = jm.init(jax.random.PRNGKey(7), jnp.zeros((1, 16, 16, 3)),
+                     jnp.zeros((1,)))["params"]
+    params = jax.tree_util.tree_map(
+        lambda p: p + 0.02 * jnp.sign(
+            jnp.sin(jnp.arange(p.size, dtype=jnp.float32)).reshape(p.shape)
+            + 0.1) if p.ndim >= 2 else p, params)
+    return jax.tree_util.tree_map(np.asarray,
+                                  junet.quantize_unet_params(params))
+
+
 def test_quant_int8_pipeline_matches_jax(tmp_path, monkeypatch):
     """default.yaml with ddnm_quant_int8 (static scales, calibrated on the
     first call), cut to 8 views of 32^2 and 10 sampling steps, a tiny w8a8
@@ -182,15 +197,7 @@ def test_quant_int8_pipeline_matches_jax(tmp_path, monkeypatch):
     (measured 36.2; 29.2 to 60.7 by view), the atlases to >= 28 dB
     (measured 34.6)."""
     T = 10
-    jm = junet.UNetModel(dtype=jnp.float32, **TINY)
-    params = jm.init(jax.random.PRNGKey(7), jnp.zeros((1, 16, 16, 3)),
-                     jnp.zeros((1,)))["params"]
-    params = jax.tree_util.tree_map(
-        lambda p: p + 0.02 * jnp.sign(
-            jnp.sin(jnp.arange(p.size, dtype=jnp.float32)).reshape(p.shape)
-            + 0.1) if p.ndim >= 2 else p, params)
-    qp = jax.tree_util.tree_map(np.asarray,
-                                junet.quantize_unet_params(params))
+    qp = _tiny_quant_params()
     jq = junet.UNetModel(dtype=jnp.float32, quant=True, **TINY)
     noise = np.random.default_rng(0).standard_normal(
         (1 + T, 8, 32, 32, 3)).astype(np.float32)
@@ -250,3 +257,51 @@ def test_quant_int8_pipeline_matches_jax(tmp_path, monkeypatch):
     views = [np.stack(out[n]["views"][1]) for n in ("torch", "jax")]
     assert _psnr(*views) >= 30.0
     assert _psnr(out["torch"]["atlas"], out["jax"]["atlas"]) >= 28.0
+
+
+def test_quant_int8_concurrent_run_equals_serial_run(tmp_path, monkeypatch):
+    """run_dataset with ddnm_quant_int8 on two clouds (cached meshes, 8
+    views of 32^2, 5 sampling steps, the tiny perturbed w8a8 UNet): at
+    concurrency 1 (the first shape calibrates the static scales), then at
+    concurrency 2 on one shared Pipeline, so both shapes' samplers run at
+    once on one UNet with those scales.  The inpainted views and atlases
+    equal the serial run's byte for byte.  (Concurrent calibration:
+    test_torch_quant.py::test_inpainter_threads_share_one_calibration.)"""
+    from pointdreamer_tpu_torch.pipeline import batch as tbatch
+
+    monkeypatch.setenv("PD_ALLOW_RANDOM_DIFFUSION", "1")
+    plys = []
+    for seed, name in ((0, "a"), (1, "b")):
+        d = str(tmp_path / "in" / name)
+        synthetic.write_cube_inputs(d, n_div=8, n_points=3000, seed=seed)
+        for ext in (".ply", "_untextured_mesh.obj"):
+            os.rename(os.path.join(d, "cube" + ext),
+                      os.path.join(d, name + ext))
+        plys.append(os.path.join(d, name + ".ply"))
+    pipe, outs = None, {}
+    for conc in (1, 2):
+        cfg = tload(os.path.join(REPO, "configs", "default.yaml"))
+        cfg.output_path = str(tmp_path / f"c{conc}")
+        for k, v in SMALL.items():
+            setattr(cfg, k, v)
+        cfg.ddnm_quant_int8 = True
+        if pipe is None:
+            pipe = TPipeline.create(cfg, device="cpu", unet_kwargs=TINY,
+                                    allow_random_diffusion=True)
+            pipe.inpainter.model.load_state_dict({
+                k: torch.tensor(v) for k, v in
+                params_from_jax(_tiny_quant_params(), **TINY).items()})
+            pipe.inpainter.t_sampling = 5
+        pipe.cfg = cfg
+        res = tbatch.run_dataset(cfg, plys, concurrency=conc, pipe=pipe)
+        assert {n: r["status"] for n, r in res.items()} == \
+            {"a": "ok", "b": "ok"}
+        assert pipe.inpainter.act_scales is not None
+        outs[conc] = cfg.output_path
+    for name in ("a", "b"):
+        rels = ["models/model_normalized.png"] + [
+            f"others/{i}_inpainted.png" for i in range(8)]
+        for rel in rels:
+            with open(os.path.join(outs[2], name, rel), "rb") as a, \
+                    open(os.path.join(outs[1], name, rel), "rb") as b:
+                assert a.read() == b.read(), (name, rel)

@@ -7,6 +7,8 @@ modes and `DDNMInpainter(static_calib=True)`.  All on the CPU in fp32,
 TF32 off.  Integer results (int8 activations and weights, int32 sums) are
 compared bit for bit; the dequantized fp32 ones within the tolerance each
 test states."""
+import threading
+
 import jax
 import jax.numpy as jnp
 import flax.linen as nn
@@ -88,7 +90,7 @@ def test_quantize_unet_matches_quantize_unet_params():
         assert g.dtype == w.dtype, k
         np.testing.assert_array_equal(g, w, err_msg=k)
     n_jax = len(_site_leaves(junet.quantize_unet_params(params), "kernel_q"))
-    assert tm.act_scales.n_sites == n_jax == 33
+    assert tm.n_sites == n_jax == 33
     assert [jp for *_, jp in tunet.quant_sites(tm)] == sorted(
         _site_leaves(junet.quantize_unet_params(params), "kernel_q"),
         key=[jp for *_, jp in tunet.quant_sites(tm)].index)
@@ -106,7 +108,7 @@ def test_flagship_quant_layout_matches_jax_eval_shape():
     kq = _site_leaves(shapes, "kernel_q")
     with torch.device("meta"):
         tm = tunet.imagenet256_unet(quant=True)
-    assert tm.act_scales.n_sites == len(kq) == 136
+    assert tm.n_sites == len(kq) == 136
     assert {jp for *_, jp in tunet.quant_sites(tm)} == set(kq)
     n_int8 = sum(p.numel() for p in tm.parameters()
                  if p.dtype == torch.int8)
@@ -240,13 +242,6 @@ def test_int8_dense_plain_matches_jax_dot_general():
 
 # ---- the layers and the UNet ---------------------------------------------
 
-def _scales(*mods):
-    sc = tunet.ActScales(len(mods))
-    for i, m in enumerate(mods):
-        m.site, m.scales = i, sc
-    return sc
-
-
 @pytest.mark.parametrize("kind", ["conv3x3", "conv3x3s2", "skip1x1",
                                   "dense"])
 def test_qconv8_qdense8_match_flax(kind):
@@ -275,7 +270,7 @@ def test_qconv8_qdense8_match_flax(kind):
         kh, kh, cin, cout)).permute(3, 0, 1, 2).contiguous()
     mod.kernel_s.data = torch.tensor(np.asarray(q["kernel_s"]))
     mod.bias.data = torch.tensor(np.asarray(q["bias"]))
-    _scales(mod)
+    mod.site = 0
     with torch.no_grad():
         if kind == "dense":
             # both of the attention's layouts: [b,c,t] in, rows out (qkv);
@@ -396,9 +391,8 @@ def test_calibrate_act_scales_matches_jax(draw):
         dyn = tm(torch.tensor(x), torch.tensor(t))
         scales = tunet.calibrate_act_scales(tm, [torch.tensor(x)],
                                             [torch.tensor(t)], margin=1.0)
-        tm.act_scales.set("static", scales)
-        stat = tm(torch.tensor(x), torch.tensor(t))
-        tm.act_scales.set("dynamic")
+        stat = tm(torch.tensor(x), torch.tensor(t),
+                  tunet.ActScales("static", scales))
     torch.testing.assert_close(stat, dyn, rtol=0, atol=0)
     js = junet.calibrate_act_scales(jq, qp, [x], [t], margin=1.3)
     want = np.array([float(v["amax"]) for v in
@@ -435,7 +429,9 @@ def test_ddnm_quant_modes_match_jax():
     against JAX's of the same mode (measured 36.3 dynamic), the known
     region >= 60 dB (the data: measured 120, equal), and the JAX package's
     fidelity gate held against its fp sampler: >= 28 dB (measured 37.8;
-    JAX's own int8 reaches 41.2)."""
+    JAX's own int8 reaches 41.2).  That bound does not tell one static
+    table column from another: the sampler's step index is checked
+    exactly, and a table whose columns differ by 4x is held to JAX's."""
     jq, qp, tm = _quant_pair()
     imgs, masks, noise = _ddnm_inputs()
     T = noise.shape[0] - 1
@@ -459,10 +455,16 @@ def test_ddnm_quant_modes_match_jax():
     stat_j = jddnm.ddnm_inpaint_batch(
         jq, qp, *args_j, t_sampling=T, noise=jnp.asarray(noise),
         act_scales=scales_j)
+    # the forwards' scales: the static table, its column s at step s
+    seen = []
+    hook = tm.register_forward_pre_hook(lambda m, a: seen.append(a[2]))
+    table = calib_t * 1.3
     stat_t = tddnm.ddnm_inpaint_batch(
         tm, torch.tensor(imgs), torch.tensor(masks), t_sampling=T,
-        noise=torch.tensor(noise), act_scales=calib_t * 1.3)
-    assert tm.act_scales.mode == "dynamic"
+        noise=torch.tensor(noise), act_scales=table)
+    hook.remove()
+    assert [(sc.mode, sc.table is table, sc.step) for sc in seen] == \
+        [("static", True, s) for s in range(T)]
     fp_j = np.asarray(jddnm.ddnm_inpaint_batch(
         junet.UNetModel(dtype=jnp.float32, **TINY), _perturbed_params(),
         *args_j, t_sampling=T, noise=jnp.asarray(noise)))
@@ -473,6 +475,21 @@ def test_ddnm_quant_modes_match_jax():
         assert _psnr(got, want) >= 30.0
         assert _psnr(got[known], want[known]) >= 60.0
         assert _psnr(got, fp_j) >= 28.0
+    # a table whose odd steps' scales are a quarter of the calibrated ones
+    # (their activations saturate): a sampler or a layer that read another
+    # step's column would part from JAX's (measured: 38.5 dB; every step
+    # reading step 0's column 24.0, step s reading s + 1's 23.1, the
+    # calibrated table without the quarters 22.1)
+    quarter = np.where(np.arange(T) % 2, 0.25, 1.0).astype(np.float32)
+    steep_j = np.asarray(jddnm.ddnm_inpaint_batch(
+        jq, qp, *args_j, t_sampling=T, noise=jnp.asarray(noise),
+        act_scales=jax.tree_util.tree_map(lambda a: (
+            a * 1.3 * jnp.asarray(quarter)).astype(jnp.float32), calib_j)))
+    steep_t = tddnm.ddnm_inpaint_batch(
+        tm, torch.tensor(imgs), torch.tensor(masks), t_sampling=T,
+        noise=torch.tensor(noise),
+        act_scales=table * torch.tensor(quarter)[None])
+    assert _psnr(steep_t.numpy(), steep_j) >= 30.0
 
 
 def test_inpainter_static_calib_first_call_equals_second():
@@ -491,6 +508,76 @@ def test_inpainter_static_calib_first_call_equals_second():
                                     torch.tensor(masks), gen, 5,
                                     act_scales=cached)
     torch.testing.assert_close(first, want, rtol=0, atol=0)
+
+
+def test_inpainter_threads_share_one_calibration():
+    """Two threads call a fresh static-scale inpainter at once, on two
+    inputs: one of them calibrates, the other waits for its scales, and
+    each returns what a serial call with those scales returns, bit for
+    bit (the scales travel down the forward; the model holds no state a
+    thread could change under another)."""
+    _, _, tm = _quant_pair()
+    ins = [_ddnm_inputs(steps=5, seed=sd)[:2] for sd in (4, 5)]
+    ins = [tuple(torch.tensor(a) for a in pair) for pair in ins]
+    tables = []
+    for imgs, masks in ins:
+        inp = tddnm.DDNMInpainter(tm, t_sampling=5, seed=3,
+                                  static_calib=True)
+        inp.inpaint(imgs, masks)
+        tables.append(inp.act_scales)
+    assert not torch.equal(*tables)
+
+    def serial(i, table):
+        gen = torch.Generator().manual_seed(3)
+        return tddnm.ddnm_inpaint_batch(tm, *ins[i], gen, 5,
+                                        act_scales=table)
+
+    for _ in range(2):
+        inp = tddnm.DDNMInpainter(tm, t_sampling=5, seed=3,
+                                  static_calib=True)
+        go = threading.Barrier(2)
+        outs = [None, None]
+
+        def run(i):
+            go.wait()
+            outs[i] = inp.inpaint(*ins[i])
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        won = [i for i, t in enumerate(tables)
+               if torch.equal(inp.act_scales, t)]
+        assert len(won) == 1
+        for i in (0, 1):
+            torch.testing.assert_close(outs[i], serial(i, tables[won[0]]),
+                                       rtol=0, atol=0)
+
+
+def test_static_forward_reads_its_step_column():
+    """A static table of three columns (the calibrated scales, a quarter
+    and four times them): the forward at step s equals the forward with
+    column s alone, bit for bit, and the columns give three results."""
+    _, _, tm = _quant_pair()
+    rng = np.random.default_rng(1)
+    x = torch.tensor(rng.standard_normal((2, 16, 16, 3)).astype(np.float32))
+    t = torch.tensor([10.0, 700.0])
+    with torch.no_grad():
+        base = tunet.calibrate_act_scales(tm, [x], [t])
+        table = torch.cat([base, base * 0.25, base * 4.0], dim=1)
+        outs = [tm(x, t, tunet.ActScales("static", table, s))
+                for s in range(3)]
+        for s in range(3):
+            one = tm(x, t, tunet.ActScales("static",
+                                           table[:, s:s + 1].clone()))
+            torch.testing.assert_close(outs[s], one, rtol=0, atol=0)
+    assert not torch.equal(outs[0], outs[1])
+    assert not torch.equal(outs[0], outs[2])
+    with pytest.raises(ValueError, match="33 sites"):
+        tm(x, t, tunet.ActScales("static", table[:5]))
+    with pytest.raises(ValueError, match="mode"):
+        tunet.ActScales("static")
 
 
 def test_static_calib_degrades_on_unquantized_model():
@@ -513,7 +600,7 @@ def test_load_inpainter_builds_the_w8a8_unet():
                              dtype=torch.float32, quant_int8=True,
                              quant_static=False)
     assert inp.model.quant and inp.static_calib is False
-    assert inp.model.act_scales.n_sites == 33
+    assert inp.model.n_sites == 33
     # quantized from the same seeded fp32 init as the fp model
     with pytest.warns(UserWarning):
         fp = load_inpainter(device="cpu", model_kwargs=TINY,

@@ -4,6 +4,7 @@ on the cloud's basename and the view size alone, so a geometry change
 reuses stale views), an explicit `--calib_margin 0` is applied (the JAX
 tool's `if args.calib_margin:` drops it), and the run writes its record."""
 import dataclasses
+import functools
 import json
 import os
 
@@ -11,9 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from pointdreamer_tpu_torch import config
 from pointdreamer_tpu_torch import io as tio
 from pointdreamer_tpu_torch import synthetic
 from pointdreamer_tpu_torch.cli import w8a8_fidelity as fid
+from pointdreamer_tpu_torch.models import diffusion
 from pointdreamer_tpu_torch.config import PipelineConfig
 from pointdreamer_tpu_torch.eval.selfparity import sphere_cloud
 
@@ -59,11 +62,17 @@ def test_view_cache_key_follows_the_view_settings(clouds, field, value):
                               clouds[0]) == key
 
 
-def test_cli_on_cpu_applies_an_explicit_zero_margin(clouds, tmp_path):
+def test_cli_on_cpu_applies_an_explicit_zero_margin(clouds, tmp_path,
+                                                    monkeypatch):
+    # the tiny UNet and views the CPU can run (the CLI's are the 552.8M
+    # flagship's, at the pipeline's sizes)
+    monkeypatch.setattr(diffusion, "build_unet", functools.partial(
+        diffusion.build_unet, model_kwargs=TINY))
+    monkeypatch.setattr(config, "PipelineConfig", functools.partial(
+        PipelineConfig, res=32, cam_res=64, grid_res=32))
     base = ["--device", "cpu", "--pc_file", clouds[0], "--calib_pc",
             clouds[1], "--cache_dir", str(tmp_path / "cache"),
-            "--unet_kwargs", json.dumps(TINY), "--res", "32", "--cam_res",
-            "64", "--grid_res", "32", "--t_sampling", "3"]
+            "--t_sampling", "3"]
     out = str(tmp_path / "r.json")
     res = fid.main(base + ["--out", out])
     assert res["calib_margin"] == 1.3
