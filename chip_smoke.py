@@ -7,8 +7,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                 source in parallel, -Xptxas -v kept beside the library) and
                 the host hull and QEM libraries; count the tensor-core
                 instructions (HMMA/HGMMA, `cuobjdump -sass`) of K2's
-                six bf16 instantiations and of K6 and fail if any has
-                none;
+                six bf16 instantiations and of K6, and the IGMMA of K8's
+                four, and fail if any has none;
                 print their registers, the build seconds and the card's
                 name and power limit.
   2. input    : a gridded unit cube (6 x 40 x 40 x 2 = 19,200 triangles)
@@ -134,16 +134,20 @@ Phases (each prints its own lines; any failure exits non-zero):
                 for the cloud's seeds 0-7: mean psnr_db >= 30 (one seed's
                 score moves by +-1.3 dB with the draw).
   9. w8a8     : the w8a8 DDNM path (K7 quantize_act, K8 int8_conv;
-                phase 1 also requires IMMA in K8's four instantiations).
+                phase 1 also requires the warpgroup product IGMMA in K8's
+                four instantiations).
                 (a) K7 and K8 against their plain versions at the 552.8M
                 UNet's shapes (3x3 256->256 at 8x256^2, 3x3 1024->1024 at
-                8x16^2, a 1x1 768->512 skip at 8x64^2, the qkv dense
-                512->1536 over 8x32^2 rows, a stride-2 3x3 at 2x64^2):
-                K7's int8, ax and amax bit-equal, K8 within one bf16 ulp;
-                ms through the wrapper and on the device, the bound
-                (bytes at 3.35 TB/s or operations at 1979 TOPS int8), the
-                plain versions', torch._int_mm's (after F.unfold for a
-                conv) and bf16 F.conv2d's.  (b) configs/default.yaml with
+                8x16^2 and at 8x8^2, both split-K, a 1x1 768->512 skip at
+                8x64^2, the qkv dense 512->1536 over 8x32^2 rows, a
+                stride-2 3x3 at 2x64^2): K7's int8, ax and amax bit-equal
+                (dynamic, static, channels last), K8 within one bf16 ulp;
+                K8's launch plan; ms through the wrapper and on the
+                device (K7 static and dynamic), the bound (bytes at 3.35
+                TB/s or operations at 1979 TOPS int8; K7 per mode), the
+                plain versions', torch.quantize_per_tensor's (K7),
+                torch._int_mm's (after F.unfold for a conv) and bf16
+                F.conv2d's (K8).  (b) configs/default.yaml with
                 ddnm_quant_int8 (static scales) on phase 4's cached-mesh
                 cube at full width: the first recon calibrates (K7 = K8 =
                 2 x 136 x 100, K2 = 3200), the second is timed (136 x 100,
@@ -225,14 +229,16 @@ def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
 
 def check_tensor_cores(path: str) -> None:
     """K2's bf16 instantiations, K6 and K8's four must hold tensor-core
-    instructions (HMMA / HGMMA, for K8 the int8 IMMA, in `cuobjdump -sass`
-    of the built library); print each count and the registers and spills
-    `-Xptxas -v` gave them."""
+    instructions (HMMA / HGMMA in `cuobjdump -sass` of the built library;
+    for K8 the int8 warpgroup product IGMMA, so a K8 on mma.sync's IMMA
+    fails); print each count and the registers and spills `-Xptxas -v`
+    gave them."""
     import re
 
     from pointdreamer_tpu_torch import kernels
 
     counts = kernels.sass_mma_counts(path)
+    igmma = kernels.sass_mma_counts(path, ("IGMMA",))
     want = {f"K2 bf16 hd {hd}{' masked' if m else ''}":
             f"attn_mma_kernelILi{hd}ELb{m}E"
             for hd in (16, 32, 64) for m in (0, 1)}
@@ -243,14 +249,15 @@ def check_tensor_cores(path: str) -> None:
     with open(path + ".ptxas.txt") as f:
         ptxas = f.read()
     for what, key in want.items():
-        found = [c for name, c in counts.items() if key in name]
+        found = [c for name, c in (igmma if what.startswith("K8") else
+                                   counts).items() if key in name]
         regs = re.search(re.escape(key) + r".*?Used (\d+) registers",
                          ptxas, re.S)
         spills = re.search(re.escape(key) + r".*?(\d+) bytes spill stores",
                            ptxas, re.S)
         print(f"[build] {what}: {found[0] if found else 0} tensor-core "
-              f"instructions ({'IMMA' if what.startswith('K8') else 'HMMA'}"
-              f"/GMMA), "
+              f"instructions ({'IGMMA' if what.startswith('K8') else 'HMMA'}"
+              f"{'' if what.startswith('K8') else '/GMMA'}), "
               f"{regs.group(1) if regs else '?'} registers, "
               f"{spills.group(1) if spills else '?'} bytes spilled")
         if len(found) != 1 or found[0] == 0:
@@ -1548,12 +1555,14 @@ def selfparity_phase(work: str) -> None:
 
 
 # K8's shapes in phase 9 (a): (what, B, Cin, H, W, Cout, k, stride, rows);
-# the first four are the 552.8M UNet's own (its largest 3x3, its 1024-wide
-# 3x3 at 16^2, an output block's 1x1 skip, the qkv of an attention block
-# at 32^2), the last the stride-2 path at a small shape
+# the first five are the 552.8M UNet's own (its largest 3x3, its
+# 1024-wide 3x3 at 16^2 and at 8^2, both split-K, an output block's 1x1
+# skip, the qkv of an attention block at 32^2), the last the stride-2 path
+# at a small shape
 K8_SHAPES = (
     ("3x3 256->256 at 8x256^2", 8, 256, 256, 256, 256, 3, 1, False),
     ("3x3 1024->1024 at 8x16^2", 8, 1024, 16, 16, 1024, 3, 1, False),
+    ("3x3 1024->1024 at 8x8^2", 8, 1024, 8, 8, 1024, 3, 1, False),
     ("1x1 skip 768->512 at 8x64^2", 8, 768, 64, 64, 512, 1, 1, False),
     ("dense qkv 512->1536 over 8x32^2 rows", 8, 512, 1024, 1, 1536, 1, 1,
      True),
@@ -1566,12 +1575,17 @@ def check_quant(dev, gen) -> list:
     (bf16 activations): K7's int8 output, ax and the amax it records bit
     for bit, also with a static amax from a scale table, and channels last
     at the attention's proj shape; K8 within one bf16 ulp at every
-    element, also from those rows to NCHW.  Prints for each
-    shape the wrapper's and the device (CUDA graph) ms of both, their
-    bounds, the plain versions' ms, the library's int8 product
-    (torch._int_mm; for a conv after F.unfold) and bf16 F.conv2d
-    (channels last).  Returns the two kernel-table rows, times and bounds
-    summed over the shapes."""
+    element, also from those rows to NCHW, with K8's launch plan.  Prints
+    for each shape the wrapper's and the device (CUDA graph) ms of both
+    (K7 static, the recon's mode, and dynamic), their bounds (K7 static:
+    x read once, int8 written; dynamic: x read twice), the plain
+    versions' ms, the library's: for K7 torch.quantize_per_tensor of x
+    cast to fp32 (cast included; it clamps to -128 and multiplies by
+    1 / scale, so it is not bit-equal, and it leaves NCHW), for K8 the
+    int8 product of torch._int_mm (for a conv after F.unfold) and bf16
+    F.conv2d (channels last).  Returns the two kernel-table rows, times
+    and bounds summed over the shapes (K7's in static mode, its dynamic
+    ones beside them)."""
     import torch
     import torch.nn.functional as F_
 
@@ -1585,6 +1599,7 @@ def check_quant(dev, gen) -> list:
                     max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
                     library_ms=0.0, bytes=0.0, ops=0.0)
             for n, line in (("quantize_act", 92), ("int8_conv", 95))}
+    dyn = dict(ms=0.0, device_ms=0.0, bytes=0.0)   # K7 with dynamic amax
 
     def k7_same(what, x, channels_last, static):
         q, ax = kq.quantize_act(x, channels_last, static)
@@ -1627,10 +1642,18 @@ def check_quant(dev, gen) -> list:
         ulps = float((err / bf16_ulp(y_p)).max())
         if not ulps <= 1.0:
             fail(f"K8 {what}: {ulps} bf16 ulps from its plain version")
-        # times: the wrapper (host included) and the device (CUDA graph)
-        ms7 = cuda_ms(lambda: kq.quantize_act(x))
-        gms7 = graph_ms(lambda: kq.quantize_act(x))
-        pms7 = cuda_ms(lambda: kq.quantize_act_plain(x), reps=3, warmup=1)
+        # times: the wrapper (host included) and the device (CUDA graph);
+        # K7 static (the recon's mode) and dynamic
+        slot = table[1, 2:3]
+        ms7 = cuda_ms(lambda: kq.quantize_act(x, False, slot))
+        gms7 = graph_ms(lambda: kq.quantize_act(x, False, slot))
+        dms7 = cuda_ms(lambda: kq.quantize_act(x))
+        dgms7 = graph_ms(lambda: kq.quantize_act(x))
+        pms7 = cuda_ms(lambda: kq.quantize_act_plain(x, False, slot),
+                       reps=3, warmup=1)
+        scale = float(kq.act_scale(table[1, 2]))
+        lms7 = cuda_ms(lambda: torch.quantize_per_tensor(
+            x.float(), scale, 0, torch.qint8))
         ms8 = cuda_ms(lambda: kq.int8_conv(*args))
         gms8 = graph_ms(lambda: kq.int8_conv(*args))
         pms8 = cuda_ms(lambda: kq.int8_conv_plain(*args), reps=3, warmup=1)
@@ -1657,19 +1680,28 @@ def check_quant(dev, gen) -> list:
         wb = torch.randn((N, Cin, k, k), generator=gen, device=dev).to(
             torch.bfloat16).contiguous(memory_format=torch.channels_last)
         cms = cuda_ms(lambda: F_.conv2d(xc, wb, None, s, pad))
-        # bounds: K7 reads x once and writes int8; K8 reads xq and wq once
-        # and writes bf16, and does 2 M N K int8 operations
+        # bounds: K7 static reads x once and writes int8, dynamic reads x
+        # twice; K8 reads xq and wq once and writes bf16, and does 2 M N K
+        # int8 operations
         n_x = x.numel()
         M = y.numel() // N
         b7 = n_x * 2 + n_x
         b8 = xq.numel() + wq.numel() + M * N * 2
         o8 = 2.0 * M * N * k * k * Cin
         bm7, by7 = bound(b7, n_x * 4.0, INT8_OPS_PER_S)
+        dbm7, _ = bound(b7 + n_x * 2, n_x * 4.0, INT8_OPS_PER_S)
         bm8, by8 = bound(b8, o8, INT8_OPS_PER_S)
         print(f"[K7 quantize_act] {what}: x {list(x.shape)} bf16, bit-equal "
-              f"(int8, ax, amax); ms={ms7:.4f} device_ms={gms7:.4f} "
-              f"plain_ms={pms7:.4f} bound_ms={bm7:.4f} ({by7}; device time "
-              f"{bm7 / gms7:.0%} of it)")
+              f"(int8, ax, amax; dynamic and static); static: ms={ms7:.4f} "
+              f"device_ms={gms7:.4f} bound_ms={bm7:.4f} ({by7}; device time "
+              f"{bm7 / gms7:.0%} of it); dynamic: ms={dms7:.4f} "
+              f"device_ms={dgms7:.4f} bound_ms={dbm7:.4f} ({dbm7 / dgms7:.0%});"
+              f" plain_ms={pms7:.4f} quantize_per_tensor_ms={lms7:.4f}")
+        plan = kq.conv_plan(B, H, W, Cin, N, k, k, s, pad)
+        print(f"[K8 int8_conv] {what}: plan chunk {plan.chunk} "
+              f"{'rows' if plan.rows else f'box {plan.box}'} "
+              f"tiles {plan.m_tiles}x{plan.n_tiles} split-K {plan.splits} "
+              f"grid {plan.grid}")
         print(f"[K8 int8_conv] {what}: M={M} N={N} K={k * k * Cin} "
               f"max_abs_err={float(err.max()):.3g} ({ulps:.3g} bf16 ulp) "
               f"ms={ms8:.4f} device_ms={gms8:.4f} plain_ms={pms8:.4f} "
@@ -1677,8 +1709,11 @@ def check_quant(dev, gen) -> list:
               f"bf16_conv2d_ms={cms:.4f} bound_ms={bm8:.4f} ({by8}; device "
               f"time {bm8 / gms8:.0%} of it, "
               f"{o8 / gms8 / 1e9:.0f} TOP/s)")
+        dyn["ms"] += dms7
+        dyn["device_ms"] += dgms7
+        dyn["bytes"] += b7 + n_x * 2
         for n, ms, gms, pms, lm, by, op, e in (
-                ("quantize_act", ms7, gms7, pms7, 0.0, b7, n_x * 4.0, 0.0),
+                ("quantize_act", ms7, gms7, pms7, lms7, b7, n_x * 4.0, 0.0),
                 ("int8_conv", ms8, gms8, pms8, lms, b8, o8,
                  float(err.max()))):
             r = rows[n]
@@ -1718,14 +1753,23 @@ def check_quant(dev, gen) -> list:
     del x, q, wq, y, y_p
     out = []
     for n, r in rows.items():
-        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("ops"),
+        ops = r.pop("ops")
+        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), ops,
                                              INT8_OPS_PER_S)
         if n == "quantize_act":
-            r["library_ms"] = None
+            r["dynamic_ms"], r["dynamic_device_ms"] = dyn["ms"], \
+                dyn["device_ms"]
+            r["dynamic_bound_ms"] = bound(dyn["bytes"], ops,
+                                          INT8_OPS_PER_S)[0]
         print(f"[{'K7' if n == 'quantize_act' else 'K8'} {n}] "
               f"{len(K8_SHAPES)} shapes: ms={r['ms']:.4f} "
               f"device_ms={r['device_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-              f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.4f}")
+              f"library_ms={r['library_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f}"
+              + (f"; dynamic amax: ms={r['dynamic_ms']:.4f} device_ms="
+                 f"{r['dynamic_device_ms']:.4f} bound_ms="
+                 f"{r['dynamic_bound_ms']:.4f}" if n == "quantize_act"
+                 else ""))
         out.append(r)
     return out
 

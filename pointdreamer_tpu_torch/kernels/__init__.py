@@ -69,8 +69,8 @@ _SIGNATURES = {
     "pd_groupnorm_max_clusters": [_I, _I, _I],
     "pd_winograd_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pd_quantize_act": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "pd_int8_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _I, _P],
+    "pd_int8_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _I, _P, _P],
 }
 
 
@@ -146,10 +146,10 @@ def build() -> str:
 MMA_OPCODES = ("HMMA", "HGMMA", "IMMA", "IGMMA")
 
 
-def mma_counts(sass: str) -> Dict[str, int]:
-    """Tensor-core instructions (HMMA, HGMMA, and the int8 IMMA, IGMMA) in
-    each function of a `cuobjdump -sass` listing, by the function's
-    (mangled) name."""
+def mma_counts(sass: str, opcodes=MMA_OPCODES) -> Dict[str, int]:
+    """Tensor-core instructions (of `opcodes`: by default HMMA, HGMMA, and
+    the int8 IMMA, IGMMA) in each function of a `cuobjdump -sass` listing,
+    by the function's (mangled) name."""
     counts: Dict[str, int] = {}
     name = None
     for line in sass.splitlines():
@@ -157,18 +157,18 @@ def mma_counts(sass: str) -> Dict[str, int]:
         if head.startswith("Function : "):
             name = head[len("Function : "):].strip()
             counts.setdefault(name, 0)
-        elif name is not None and any(op in line for op in MMA_OPCODES):
+        elif name is not None and any(op in line for op in opcodes):
             counts[name] += 1
     return counts
 
 
-def sass_mma_counts(path: str) -> Dict[str, int]:
+def sass_mma_counts(path: str, opcodes=MMA_OPCODES) -> Dict[str, int]:
     """`mma_counts` of the built library at `path` (cuobjdump from the
     toolkit that holds nvcc)."""
     tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", path], capture_output=True,
                           text=True, check=True).stdout
-    return mma_counts(sass)
+    return mma_counts(sass, opcodes)
 
 
 def build_host(source: str) -> str:
