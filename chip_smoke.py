@@ -157,6 +157,27 @@ Phases (each prints its own lines; any failure exits non-zero):
                 cli/w8a8_fidelity on the flagship at 10 sampling steps:
                 the int8 samplers' PSNR against bf16 on perturbed weights
                 (finite, known region >= 60 dB; the rest recorded).
+ 10. options  : the Pipeline options of the later slice, on phase 4's
+                Pipeline.  (a) complete_unseen_by 'optimize' (the
+                tri-plane colour field, 400 Adam steps replayed from one
+                CUDA graph) on the cached-mesh cube, DDNM included:
+                launches K1 >= 3, K2 = 1600, K3 = 100; phase 4's output
+                checks; the texels NBF painted unchanged; the fit's loss
+                falls; the card's 20-step fit against the port's CPU fit
+                from one init on a uniform 32,768-point cloud (predictions
+                within 1e-4); the complete stage's seconds beside phase
+                4's neighbour completion, the fit's step eager and
+                captured.  (b) unproject_by 'face', naive_face_view false
+                (DDNM runs) then true (the Pipeline's own inpainted-view
+                cache, K2 = 0): all faces in 8 usemtl groups, 8 view PNGs,
+                labels >= 0 and equal to the CPU's assign_face_views on
+                the card's counts (equal to the CPU's counts), no unwrap.
+                (c) reconstruct_mesh(SPR, 128, 10,000, iso_method 'tets')
+                of the cloud alone: phase 5's mesh gates; marching_tets on
+                the card against the CPU on one field, and
+                decimate_vertex_clustering of both, equal;
+                refine_orientation_by_visibility card against CPU (signs
+                agree >= 99.9%).  Seconds of each, and the phase's wall.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1898,6 +1919,407 @@ def w8a8_fidelity_phase(work: str, t_sampling: int = 10) -> None:
           f"{res['gates_pass']}; {res['wall_sec']} s")
 
 
+def _launch_run(pipe, ply: str, out: str):
+    """One timed recon_one_textured_mesh into `out`, the launch counts set
+    to 0 just before it and read just after.  Returns (obj, stage seconds,
+    launches, wall seconds)."""
+    import torch
+
+    from pointdreamer_tpu_torch import kernels
+    from pointdreamer_tpu_torch.log import StageTimer
+
+    pipe.cfg.output_path = out
+    timer = StageTimer(None, sync=True)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    obj = pipe.recon_one_textured_mesh(ply, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return obj, dict(timer.times), dict(kernels.LAUNCHES), wall
+
+
+def optimize_completion_phase(dev, pipe, ply: str, work: str,
+                              e2e_stages: dict) -> None:
+    """Phase 10 (a): configs/default.yaml with complete_unseen_by
+    'optimize' on phase 4's cached-mesh cube, whole (DDNM included);
+    launches K1 >= 3, K2 = 1600, K3 = 100; phase 4's output checks; the
+    texels NBF painted unchanged by the fit; the fit's loss falls; the
+    card's field after 20 steps against the port's CPU fit from the same
+    init on a uniform cloud; the fit's step times, eager and captured."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    import pointdreamer_tpu_torch.models.texture_field as texfield
+    from pointdreamer_tpu_torch.models.texture_field import triplane
+
+    cfg = pipe.cfg
+    seen = {}
+    real_fit, real_paint = triplane.fit_color_field, texfield.fit_and_paint
+
+    def fit_spy(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        field, losses = real_fit(*a, **k)
+        torch.cuda.synchronize()
+        seen["fit_s"] = time.perf_counter() - t0
+        seen["losses"] = losses.cpu().numpy()
+        return field, losses
+
+    def paint_spy(atlas_img, painted, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_paint(atlas_img, painted, *a, **k)
+        torch.cuda.synchronize()
+        seen["paint_s"] = time.perf_counter() - t0
+        seen["painted_kept"] = bool((out[painted] == atlas_img[painted])
+                                    .all())
+        seen["n_painted"] = int(painted.sum())
+        seen["n_unseen"] = int((a[1] & ~painted).sum())
+        return out
+
+    cfg.complete_unseen_by = "optimize"
+    triplane.fit_color_field, texfield.fit_and_paint = fit_spy, paint_spy
+    try:
+        obj, stages, launches, wall = _launch_run(
+            pipe, ply, os.path.join(work, "out_optimize"))
+    finally:
+        triplane.fit_color_field, texfield.fit_and_paint = (real_fit,
+                                                            real_paint)
+        cfg.complete_unseen_by = "neighbor"
+    print(f"[optimize] timed run {wall:.3f} s stages "
+          f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}")
+    print(f"[optimize] launches {json.dumps(launches)}")
+    if launches["attention_qkv"] != 1600 or launches["segment_sum"] != 100 \
+            or launches["raster_binned"] < 3:
+        fail(f"optimize completion launches {launches}: not K2 = 1600, "
+             f"K3 = 100, K1 >= 3")
+    check_outputs(obj, cfg, "optimize")
+    losses = seen["losses"]
+    print(f"[optimize] complete stage {stages['complete']:.4f} s against "
+          f"phase 4's neighbour completion {e2e_stages['complete']:.4f} s: "
+          f"the fit {seen['fit_s']:.4f} s (the field's init, the capture, "
+          f"400 replays), the field at the {cfg.xatlas_texture_res}^2 "
+          f"texels "
+          f"{seen['paint_s'] - seen['fit_s']:.4f} s, the rest (the nearest "
+          f"fill) {stages['complete'] - seen['paint_s']:.4f} s; "
+          f"{seen['n_unseen']} unseen texels painted by the field, "
+          f"{seen['n_painted']} NBF texels kept: {seen['painted_kept']}; "
+          f"loss {losses[0]:.5f} -> {losses[-1]:.5f} over {len(losses)} "
+          f"steps")
+    if not seen["painted_kept"]:
+        fail("the complete stage changed texels NBF painted")
+    if not (len(losses) == 400 and np.isfinite(losses).all()
+            and losses[-1] < losses[0]):
+        fail(f"the fit's loss did not fall: {losses[0]} -> {losses[-1]}")
+
+    # the card against the port's CPU, from one init on a uniform cloud of
+    # the pipeline's padded size.  The gradient: within 1e-4 of each
+    # tensor's largest.  The fit (20 steps): Adam turns gradient entries
+    # that cancel to rounding level into full steps of either sign
+    # (tests/test_torch_texture_field.py), so the summation order alone
+    # moves the field; the CPU's own order spread (1 thread against 4)
+    # sets the bound: mean |d| within 4 x its.
+    rng = np.random.default_rng(0)
+    xyz = rng.uniform(-0.5, 0.5, (32768, 3)).astype(np.float32)
+    rgb = rng.random((32768, 3)).astype(np.float32)
+    q = rng.uniform(-0.5, 0.5, (65536, 3)).astype(np.float32)
+    init = triplane.TriplaneColorField(
+        torch.Generator(device="cpu").manual_seed(1), device="cpu")
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        f = copy.deepcopy(init).to(d)
+        opt = triplane.AdamCosine(f.parameters(), 1e-2, 20, alpha=1.0)
+        triplane.loss_and_grad(f, opt, torch.as_tensor(xyz, device=d),
+                               torch.as_tensor(rgb, device=d) * 2.0 - 1.0)
+        grads.append({n: p.grad.cpu() for n, p in f.named_parameters()})
+    g_err = max(float((grads[0][n] - g).abs().max()
+                      / g.abs().max().clamp(min=1e-30))
+                for n, g in grads[1].items())
+    n_threads = torch.get_num_threads()
+    runs = []
+    for d, threads in ((dev, n_threads), ("cpu", 1), ("cpu", 4)):
+        torch.set_num_threads(threads)
+        f, ls = triplane.fit_color_field(
+            torch.as_tensor(xyz, device=d), torch.as_tensor(rgb, device=d),
+            20, init=init)
+        with torch.no_grad():
+            runs.append((f(torch.as_tensor(q, device=d)).cpu().numpy(),
+                         ls.cpu().numpy()))
+    torch.set_num_threads(n_threads)
+    (pred_card, loss_card), (pred_cpu, loss_cpu), (pred_cpu4, _) = runs
+    d_card = np.abs(pred_card - pred_cpu)
+    d_cpu = np.abs(pred_cpu4 - pred_cpu)
+    lrel = float((np.abs(loss_card - loss_cpu) / loss_cpu).max())
+    print(f"[optimize] the card against the CPU (32768 uniform points): "
+          f"gradient at the init within {g_err:.3g} of each tensor's "
+          f"largest (bound 1e-4); after 20 steps, over 65536 queries, "
+          f"mean |d| {d_card.mean():.3g} max {d_card.max():.3g} against "
+          f"the CPU's own spread (1 vs 4 threads) mean {d_cpu.mean():.3g} "
+          f"max {d_cpu.max():.3g}; losses within {lrel:.3g} relative")
+    if not (g_err <= 1e-4 and d_card.mean() <= 4 * d_cpu.mean() + 1e-6):
+        fail(f"the card's fit against the CPU's: gradient {g_err}, field "
+             f"mean |d| {d_card.mean()} (CPU spread {d_cpu.mean()})")
+
+    # the fit's step on the card: eager against one CUDA-graph replay, at
+    # the pipeline's shape (the padded cloud)
+    xyz_t = torch.as_tensor(xyz, device=dev)
+    target = torch.as_tensor(rgb, device=dev) * 2.0 - 1.0
+    field = triplane.TriplaneColorField(device=dev)
+    opt = triplane.AdamCosine(field.parameters(), 1e-2, 400, alpha=1.0)
+    eager = cuda_ms(lambda: triplane.fit_step(field, opt, xyz_t, target),
+                    reps=20, warmup=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = triplane.CapturedFitStep(field, opt, xyz_t, target, 100)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    captured = cuda_ms(step, reps=20, warmup=3)
+    print(f"[optimize] fit step at 32768 points: eager {eager:.4f} ms, "
+          f"captured {captured:.4f} ms (400 steps: {0.4 * captured:.3f} s); "
+          f"warm-up and capture, the process's second: {capture_s:.4f} s")
+    # where the step's device time goes: 5 eager steps traced
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            triplane.fit_step(field, opt, xyz_t, target)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.device_time_total > 0:
+            ms, n = by_name.get(e.key, (0.0, 0))
+            by_name[e.key] = (ms + e.device_time_total / 5e3, n + e.count)
+    kernel_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    print(f"[optimize] fit step traced: {sum(n for _, n in by_name.values()) / 5:.0f} "
+          f"device events, {kernel_ms:.4f} ms of device time a step; top: "
+          + "; ".join(f"{k[:70]} {ms:.4f} ms x{n // 5}"
+                      for k, (ms, n) in top))
+
+
+def _face_labels(path: str, n_faces: int):
+    """Per face the material index of its usemtl group in a face-mode OBJ
+    (face i's corners are vt 3i+1..3i+3); -1 where no line lists it."""
+    import numpy as np
+
+    labels = np.full(n_faces, -1, np.int64)
+    mat = -1
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("usemtl material_"):
+                mat = int(line.split("_")[1])
+            elif line.startswith("f "):
+                t = int(line.split()[1].split("/")[1])
+                labels[(t - 1) // 3] = mat
+    return labels
+
+
+def face_mode_phase(dev, pipe, ply: str, work: str) -> None:
+    """Phase 10 (b): unproject_by 'face' on phase 4's Pipeline and cached
+    mesh, naive_face_view false (DDNM runs: K1 >= 1, K2 = 1600), then true
+    into the same output directory (the Pipeline's own inpainted-view
+    cache: K2 = 0).  The OBJ lists all F faces in 8 usemtl groups, 8 view
+    PNGs beside it, every label >= 0; the card's counts equal the CPU's
+    from the same face-id maps and the labels equal the port's CPU
+    assign_face_views on them (naive: argmax of normal . view); no unwrap
+    ran."""
+    import numpy as np
+    import torch
+
+    from pointdreamer_tpu_torch import io as pio
+    from pointdreamer_tpu_torch.ops import raster as orast
+    from pointdreamer_tpu_torch.pipeline import face_assign as pface
+    from pointdreamer_tpu_torch.pipeline.geometry import normalize_points
+    from pointdreamer_tpu_torch.pipeline.pipeline import _pad_mesh
+
+    cfg = pipe.cfg
+    seen = {}
+    real_counts = pface.face_view_pixel_counts
+
+    def counts_spy(face_idxs, n_faces):
+        out = real_counts(face_idxs, n_faces)
+        seen["face_idxs"], seen["counts"] = face_idxs, out
+        return out
+
+    # the similarity the pipeline computes, from the same mesh and ops
+    xyz, _ = pio.read_ply_xyzrgb(ply)
+    _, center, scale = normalize_points(xyz)
+    mesh = pio.load_obj(ply.replace(".ply", "_untextured_mesh.obj"))
+    verts = (mesh["vertices"] - center) / scale
+    faces = mesh["faces"]
+    n_faces = len(faces)
+    verts_p, faces_p, _, _ = _pad_mesh(verts, faces)
+    f_normals = orast.face_normals(torch.as_tensor(verts_p, device=dev),
+                                   torch.as_tensor(faces_p, device=dev))
+    sim = (f_normals[:n_faces] @ pipe.rig.base_dirs.T).cpu().numpy()
+    neighbors = pface.face_adjacency_neighbors(faces)
+
+    out = os.path.join(work, "out_face")
+    cfg.unproject_by = "face"
+    pface.face_view_pixel_counts = counts_spy
+    try:
+        for naive in (False, True):
+            cfg.naive_face_view = naive
+            seen.clear()
+            obj, stages, launches, wall = _launch_run(pipe, ply, out)
+            cached = launches["attention_qkv"] == 0
+            what = f"face, naive_face_view {naive}"
+            print(f"[{what}] timed run {wall:.3f} s stages "
+                  f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}"
+                  f"; launches {json.dumps(launches)}; inpainted views from "
+                  f"the Pipeline's cache: {cached}")
+            if launches["raster_binned"] < 1 or launches["attention_qkv"] != \
+                    (0 if naive else 1600) or launches["segment_sum"] != 0:
+                fail(f"{what}: launches {launches}")
+            if cached != naive:
+                fail(f"{what}: the inpaint cache was taken: {cached}")
+            labels = _face_labels(obj, n_faces)
+            with open(obj) as fh:
+                text = fh.read()
+            groups = text.count("usemtl material_")
+            models = os.path.dirname(obj)
+            pngs = [pio.load_png(os.path.join(models, f"{i}.png"))
+                    for i in range(cfg.view_num)]
+            counts_card = seen["counts"][:n_faces].cpu().numpy()
+            counts_cpu = pface.face_view_pixel_counts(
+                seen["face_idxs"].cpu(), len(faces_p))[:n_faces].numpy()
+            want = (sim.argmax(axis=1) if naive else
+                    pface.assign_face_views(neighbors, counts_cpu, sim))
+            geo = os.path.join(os.path.dirname(models), "geo")
+            unwraps = [n for n in os.listdir(geo) if n.startswith("unwrap")]
+            print(f"[{what}] {text.count(chr(10) + 'f ')} face lines in "
+                  f"{groups} groups, faces per view "
+                  f"{np.bincount(labels[labels >= 0], minlength=8).tolist()}"
+                  f"; PNGs {[p.shape for p in pngs][:1]} x {len(pngs)}; "
+                  f"{int((counts_card.sum(1) == 0).sum())} faces no view "
+                  f"sees; labels equal to the CPU's: "
+                  f"{int((labels == want).sum())} of {n_faces}; unproject "
+                  f"{stages['unproject']:.4f} s, export {stages['export']:.4f}"
+                  f" s; unwrap outputs {unwraps}")
+            if text.count(chr(10) + "f ") != n_faces or groups != 8 \
+                    or not (labels >= 0).all():
+                fail(f"{what}: the OBJ does not list the {n_faces} faces in "
+                     f"8 groups")
+            if len(pngs) != 8 or any(p.shape != (cfg.res, cfg.res, 3)
+                                     for p in pngs):
+                fail(f"{what}: view PNGs {[p.shape for p in pngs]}")
+            if not (counts_card == counts_cpu).all():
+                fail(f"{what}: the card's pixel counts differ from the CPU's")
+            if not (labels == want).all():
+                fail(f"{what}: labels differ from the CPU's")
+            if "unwrap.thread" in stages or unwraps:
+                fail(f"{what}: an unwrap ran")
+    finally:
+        pface.face_view_pixel_counts = real_counts
+        cfg.unproject_by, cfg.naive_face_view = "vertex", False
+
+
+def tets_phase(dev, cfg, ply_alone: str, spr_dist: float) -> None:
+    """Phase 10 (c): reconstruct_mesh(..., 'SPR', 128, 10000,
+    iso_method='tets') of the cloud alone on the card: phase 5's mesh
+    gates against the cube and the port's CPU tets mesh; marching_tets on
+    the card against the CPU on the same field, then
+    decimate_vertex_clustering of both; refine_orientation_by_visibility
+    on the 30,000 points, card against CPU."""
+    import numpy as np
+    import torch
+
+    from pointdreamer_tpu_torch import io as pio
+    from pointdreamer_tpu_torch.log import StageTimer
+    from pointdreamer_tpu_torch.ops import iso as oiso
+    from pointdreamer_tpu_torch.ops import sdf as osdf
+    from pointdreamer_tpu_torch.pipeline import geometry as pgeo
+
+    xyz, _ = pio.read_ply_xyzrgb(ply_alone)
+    xyz_n, _, _ = pgeo.normalize_points(xyz)
+    target = cfg.target_face_num
+    kw = dict(refine_iters=cfg.refine_vertex_iters,
+              screen_weight=cfg.spr_screen_weight, iso_method="tets")
+    timer = StageTimer(None, sync=True)
+    t0 = time.perf_counter()
+    v, f = pgeo.reconstruct_mesh(xyz_n, "SPR", cfg.grid_res, target,
+                                 device=dev, timer=timer, **kw)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    v_cpu, f_cpu = pgeo.reconstruct_mesh(xyz_n, "SPR", cfg.grid_res, target,
+                                         device="cpu", **kw)
+    t_cpu = time.perf_counter() - t0
+    dist, outward = mesh_vs_cube(v, f, xyz_n)
+    tv, tf = torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev)
+    cv = torch.as_tensor(v_cpu, device=dev)
+    cf = torch.as_tensor(f_cpu, device=dev)
+    chamfer = 0.5 * float(to_surface(tv, cv, cf).mean()
+                          + to_surface(cv, tv, tf).mean())
+    print(f"[tets] reconstruct_mesh(SPR, {cfg.grid_res}, {target}, tets) "
+          f"{t_card:.3f} s on the card "
+          f"{json.dumps({k: round(x, 4) for k, x in timer.times.items()})}, "
+          f"{t_cpu:.2f} s on the host; {len(v)} vertices {len(f)} faces "
+          f"({len(f_cpu)} on the CPU); distance to the cube mean "
+          f"{dist.mean():.5f} (marching cubes, phase 5: {spr_dist:.5f}) p95 "
+          f"{np.percentile(dist, 95):.5f}; outward {outward:.5f}; chamfer to "
+          f"the CPU mesh {chamfer:.3g}")
+    if not 0.8 * target <= len(f) <= target:
+        fail(f"tets: {len(f)} faces, not within 0.8-1.0 x {target}")
+    if not (dist.mean() < 0.01 and outward >= 0.99 and chamfer <= 1e-3):
+        fail(f"tets: distance {dist.mean()}, outward {outward}, chamfer "
+             f"{chamfer}")
+
+    # marching tets on the card and on the host from the same field, then
+    # the clustering decimation of each
+    normals = osdf.estimate_oriented_normals(xyz_n, device=dev)
+    pts01 = (xyz_n - pgeo.GRID_LO) / (pgeo.GRID_HI - pgeo.GRID_LO)
+    field = osdf.poisson_indicator_grid(
+        torch.as_tensor(pts01, device=dev),
+        torch.as_tensor(normals, device=dev), res=cfg.grid_res,
+        screen_weight=cfg.spr_screen_weight)
+    axis = np.linspace(pgeo.GRID_LO, pgeo.GRID_HI, cfg.grid_res,
+                       dtype=np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vc, fc, kc = oiso.marching_tets(field, axis, return_edge_keys=True)
+    t_mt = time.perf_counter() - t0
+    vh, fh, kh = oiso.marching_tets(field.cpu(), axis, return_edge_keys=True)
+    same_mt = (fc.shape == fh.shape and (fc == fh).all()
+               and (kc == kh).all())
+    dv = float(np.abs(vc - vh).max()) if same_mt else float("nan")
+    vc, fc = pgeo.largest_component(vc, fc)
+    vh, fh = pgeo.largest_component(vh, fh)
+    t0 = time.perf_counter()
+    dc = pgeo.decimate_vertex_clustering(vc, fc, target)
+    t_cl = time.perf_counter() - t0
+    dh = pgeo.decimate_vertex_clustering(vh, fh, target)
+    same_cl = (dc[1].shape == dh[1].shape and (dc[1] == dh[1]).all()
+               and (dc[0] == dh[0]).all())
+    print(f"[tets] marching_tets on the card {t_mt:.4f} s: {len(fc)} faces, "
+          f"the CPU's on the same field equal: {same_mt} (vertices max |d| "
+          f"{dv:.3g}); decimate_vertex_clustering {len(fc)} -> "
+          f"{len(dc[1])} faces in {t_cl:.3f} s, equal to the CPU's: "
+          f"{same_cl}")
+    if not (same_mt and dv <= 1e-6 and same_cl):
+        fail("tets: the card's marching tets or clustering differ from "
+             "the CPU's")
+
+    t0 = time.perf_counter()
+    rc = osdf.refine_orientation_by_visibility(xyz_n, normals, device=dev)
+    t_rf = time.perf_counter() - t0
+    rh = osdf.refine_orientation_by_visibility(xyz_n, normals, device="cpu")
+    sc, sh = np.sign((rc * normals).sum(1)), np.sign((rh * normals).sum(1))
+    agree = float((sc == sh).mean())
+    print(f"[tets] refine_orientation_by_visibility on {len(xyz_n)} points "
+          f"{t_rf:.3f} s: {int((sc < 0).sum())} normals flipped; signs "
+          f"agree with the CPU run's at {agree:.5f} (bound 0.999)")
+    if not agree >= 0.999:
+        fail(f"refine_orientation_by_visibility: card and CPU agree at "
+             f"{agree}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2189,6 +2611,7 @@ def main() -> int:
         if t["name"] != "raster_legacy":
             t["launches"] = launches[t["name"]]
     check_outputs(obj, cfg, "e2e")
+    e2e_stages = dict(timer.times)
     bf16_inpaint = timer.times["inpaint"]
     bf16_views = os.path.join(os.path.dirname(os.path.dirname(obj)),
                               "others")
@@ -2284,7 +2707,6 @@ def main() -> int:
     pred_dir = render_phase(dev, obj5, work, table)
     gt_dir = perception_phase(dev, work, verts, faces, pred_dir)
     dataset_phase(pipe, ply_alone, work, gt_dir, table)
-    del pipe
     torch.cuda.empty_cache()
     selfparity_phase(work)
 
@@ -2295,6 +2717,15 @@ def main() -> int:
                bf16_views, bf16_inpaint, table)
     torch.cuda.empty_cache()
     w8a8_fidelity_phase(work)
+
+    # ---- 10. the Pipeline's other options ------------------------------
+    t10 = time.perf_counter()
+    optimize_completion_phase(dev, pipe, ply, work, e2e_stages)
+    face_mode_phase(dev, pipe, ply, work)
+    del pipe
+    torch.cuda.empty_cache()
+    tets_phase(dev, cfg, ply_alone, spr_dist)
+    print(f"[options] phase 10 {time.perf_counter() - t10:.2f} s")
 
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

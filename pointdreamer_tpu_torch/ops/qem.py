@@ -2,7 +2,8 @@
 collapse (csrc/host/qem.cpp; twin of pointdreamer_tpu/native/qem.py).
 
 Built with g++ at first use into the git-ignored build directory.  A
-failed build raises: the port has no other decimation to fall back on."""
+failed build raises; an error code the library returns on a mesh raises
+`QEMFailed` (pipeline/geometry.py then decimates by vertex clustering)."""
 from __future__ import annotations
 
 import ctypes
@@ -15,6 +16,10 @@ from ..kernels import build_host
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
+
+
+class QEMFailed(RuntimeError):
+    """qem_simplify returned an error code on its input mesh."""
 
 
 def build() -> str:
@@ -56,5 +61,5 @@ def simplify(vertices: np.ndarray, faces: np.ndarray,
         out_f.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         ctypes.byref(nf))
     if rc != 0:
-        raise RuntimeError(f"qem_simplify failed rc={rc}")
+        raise QEMFailed(f"qem_simplify failed rc={rc}")
     return out_v[: nv.value].copy(), out_f[: nf.value].copy()

@@ -128,15 +128,73 @@ def orient_normals_mst(points: np.ndarray, normals: np.ndarray,
     return (nrm * sign[:, None]).astype(np.float32)
 
 
+def refine_orientation_by_visibility(points: np.ndarray,
+                                     normals: np.ndarray,
+                                     n_eyes: int = 12,
+                                     eye_distance: float = 1.6,
+                                     dot_thresh: float = 0.15,
+                                     min_votes: int = 2,
+                                     smooth_iters: int = 3,
+                                     device="cuda") -> np.ndarray:
+    """Fix local orientation flips the MST cannot see (a concave region
+    such as a cup's inner wall, where the sign propagation crosses a thin
+    wall and the whole cavity ends up inverted).
+
+    A point visible from an eye (hidden-point removal from `n_eyes`
+    Fibonacci-sphere eyes) must have its normal facing that eye.  Each
+    (point, visible eye) pair with |n . dir| > dot_thresh casts a vote;
+    a point with >= min_votes and a majority against its sign flips.
+    Then `smooth_iters` kNN (k = 8, on `device`) majority passes adjust
+    the points that are not confidently voted (>= 2 min_votes on one
+    side).  The votes run on the host, as in the JAX package."""
+    from ..camera import fibonacci_sphere
+    from .splat import hidden_point_removal_visibility
+
+    pts = np.asarray(points, np.float32)
+    nrm = np.asarray(normals, np.float32).copy()
+    eyes = fibonacci_sphere(n_eyes, eye_distance).astype(np.float32)
+    vis = np.asarray(hidden_point_removal_visibility(pts, eyes, 100))
+    dirs = eyes[:, None, :] - pts[None, :, :]
+    dirs /= np.maximum(np.linalg.norm(dirs, axis=-1, keepdims=True),
+                       1e-12)
+    dot = (nrm[None] * dirs).sum(-1)                       # [V,N]
+    agree = ((dot > dot_thresh) & vis).sum(0)
+    disagree = ((dot < -dot_thresh) & vis).sum(0)
+    voted = (agree + disagree) >= min_votes
+    sgn = np.ones(len(pts), np.float32)
+    sgn[voted & (disagree > agree)] = -1.0
+
+    if smooth_iters:
+        p = torch.as_tensor(pts, device=device)
+        nb = knn(p, p, 9)[1][:, 1:].cpu().numpy()
+        # neighbour j implies sign_i = sgn_j * sign(n_i . n_j), weighted
+        # by |n_i . n_j|: consensus_i = sum_j (n_i . n_j) * sgn_j
+        w = (nrm[:, None, :] * nrm[nb]).sum(-1)            # [N,8] signed
+        anchored = voted & (np.maximum(agree, disagree)
+                            >= 2 * min_votes)              # confident
+        for _ in range(smooth_iters):
+            consensus = (w * sgn[nb]).sum(1)
+            upd = np.where(consensus != 0, np.sign(consensus), sgn)
+            sgn = np.where(anchored, sgn, upd).astype(np.float32)
+    return nrm * sgn[:, None]
+
+
 def estimate_oriented_normals(points: np.ndarray, k_pca: int = 16,
-                              k_mst: int = 12, device="cuda") -> np.ndarray:
+                              k_mst: int = 12,
+                              visibility_refine: bool = False,
+                              device="cuda") -> np.ndarray:
     """One shared kNN pass (on `device`) feeds both PCA and the host MST.
-    The JAX package's opt-in visibility refinement is not ported."""
+    `visibility_refine` adds `refine_orientation_by_visibility`'s vote
+    pass (host hulls from 12 eyes); no caller in either package passes
+    True (ADVICE.md on the JAX docstring's claim that some do)."""
     p = torch.as_tensor(np.asarray(points, np.float32), device=device)
     _, idx = knn(p, p, max(k_pca, k_mst + 1))
     nrm = pca_normals_from_idx(p, idx[:, :k_pca]).cpu().numpy()
-    return orient_normals_mst(points, nrm, k_mst,
-                              knn_idx=idx[:, :k_mst + 1].cpu().numpy())
+    out = orient_normals_mst(points, nrm, k_mst,
+                             knn_idx=idx[:, :k_mst + 1].cpu().numpy())
+    if visibility_refine:
+        out = refine_orientation_by_visibility(points, out, device=device)
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -11,9 +11,11 @@ Backends:
                   no network it warns and runs 'SPR', as the JAX package
                   does.
 
-The field lives on a dense grid over [-0.62, 0.62]^3, marching cubes
-extracts the surface (ops/iso.py), the largest edge-connected component
-is kept, and the port's C++ QEM (ops/qem.py) decimates it.
+The field lives on a dense grid over [-0.62, 0.62]^3, marching cubes or
+marching tets (`iso_method`) extracts the surface (ops/iso.py), the
+largest edge-connected component is kept, and the port's C++ QEM
+(ops/qem.py) decimates it; where the QEM returns an error code on the
+mesh, grid vertex clustering does (`decimate_vertex_clustering`).
 """
 from __future__ import annotations
 
@@ -39,6 +41,55 @@ def normalize_points(xyz: np.ndarray) -> Tuple[np.ndarray, np.ndarray, float]:
     center = (vmin + vmax) / 2.0
     scale = float((vmax - vmin).max())
     return ((xyz - center) / scale).astype(np.float32), center, scale
+
+
+def decimate_vertex_clustering(vertices: np.ndarray, faces: np.ndarray,
+                               target_faces: int
+                               ) -> Tuple[np.ndarray, np.ndarray]:
+    """Grid vertex-clustering decimation (host): a bisection over the grid
+    resolution for the face count nearest `target_faces` (within 1.3 x
+    of it).  Cruder than the QEM, whose error path it stands in for."""
+    if len(faces) <= target_faces:
+        return vertices, faces
+    lo, hi = 4, 512
+    best = (vertices, faces)
+    for _ in range(12):
+        res = (lo + hi) // 2
+        v, f = _cluster_once(vertices, faces, res)
+        if len(f) > target_faces:
+            hi = res
+        else:
+            lo = res
+            best = (v, f)
+        if hi - lo <= 1:
+            break
+    v, f = _cluster_once(vertices, faces, hi)
+    if abs(len(f) - target_faces) < abs(len(best[1]) - target_faces) \
+            and len(f) <= target_faces * 1.3:
+        best = (v, f)
+    return best
+
+
+def _cluster_once(vertices, faces, res):
+    """Merge the vertices of each cell of a res^3 grid over the mesh's
+    bounding cube into their mean; drop collapsed and repeated faces."""
+    vmin = vertices.min(0)
+    ext = (vertices.max(0) - vmin).max() + 1e-9
+    cell = np.floor((vertices - vmin) / ext * (res - 1e-4)).astype(np.int64)
+    key = (cell[:, 0] * res + cell[:, 1]) * res + cell[:, 2]
+    uniq, inv = np.unique(key, return_inverse=True)
+    new_v = np.zeros((len(uniq), 3), np.float64)
+    cnt = np.bincount(inv, minlength=len(uniq)).astype(np.float64)
+    for d in range(3):
+        new_v[:, d] = np.bincount(inv, weights=vertices[:, d],
+                                  minlength=len(uniq)) / cnt
+    nf = inv[faces]
+    good = ((nf[:, 0] != nf[:, 1]) & (nf[:, 1] != nf[:, 2])
+            & (nf[:, 0] != nf[:, 2]))
+    nf = nf[good]
+    sf = np.sort(nf, axis=1)
+    _, fi = np.unique(sf, axis=0, return_index=True)
+    return new_v.astype(np.float32), nf[np.sort(fi)]
 
 
 def taubin_smooth(vertices: np.ndarray, faces: np.ndarray,
@@ -120,9 +171,6 @@ def reconstruct_mesh(
         return (timer.stage(f"geometry.{name}") if timer is not None
                 else contextlib.nullcontext())
 
-    if iso_method != "mc":
-        raise NotImplementedError(
-            f"iso_method={iso_method!r}: a later port slice")
     dev = torch.device(device)
     pts = np.asarray(xyz_normalized, np.float32)
     if noise_stddev:
@@ -166,8 +214,10 @@ def reconstruct_mesh(
     else:
         raise ValueError(f"unknown geo_from={geo_from}")
 
-    with part("marching_cubes"):
-        verts, faces, edge_keys = oiso.marching_cubes(
+    extract = oiso.marching_cubes if iso_method == "mc" \
+        else oiso.marching_tets
+    with part("marching_cubes" if iso_method == "mc" else "marching_tets"):
+        verts, faces, edge_keys = extract(
             torch.as_tensor(field, device=dev), axis, return_edge_keys=True)
     if field_fn is not None and refine_iters > 0 and len(verts):
         with part("refine"):
@@ -185,7 +235,12 @@ def reconstruct_mesh(
         raise RuntimeError("iso-surface extraction produced no triangles")
     with part("qem"):
         verts, faces = largest_component(verts, faces)
-        verts, faces = oqem.simplify(verts, faces, target_faces)
+        try:
+            verts, faces = oqem.simplify(verts, faces, target_faces)
+        except oqem.QEMFailed as e:
+            warnings.warn(f"{e}; decimating by vertex clustering")
+            verts, faces = decimate_vertex_clustering(verts, faces,
+                                                      target_faces)
     if smooth_mesh:
         verts = taubin_smooth(verts, faces)
     return verts.astype(np.float32), faces.astype(np.int64)

@@ -11,7 +11,10 @@ io thread.  Stage caches: the mesh,
 its unwrap (`geo/unwrap_<R>.npz`) and the inpainted views
 (`others/<i>_inpainted.png`).  The unwrap and the HPR hulls run on a host
 thread while the device works; the unwrap thread's own wall and CPU
-seconds are recorded as `unwrap.thread` and `unwrap.thread_cpu`.
+seconds are recorded as `unwrap.thread` and `unwrap.thread_cpu`.  With
+`unproject_by: face` no unwrap runs: each face takes one inpainted view
+(pipeline/face_assign.py) and the mesh is written with one material a
+view.
 """
 from __future__ import annotations
 
@@ -233,10 +236,9 @@ class Pipeline:
             np.savez(unwrap_cache, uvs=uv, face_uv_idx=fuv)
             return uv, fuv
 
-        if cfg.unproject_by != "vertex":
-            raise NotImplementedError(
-                f"unproject_by={cfg.unproject_by!r}: a later port slice")
-        unwrap_future = pio.async_executor().submit(_unwrap_host)
+        face_mode = cfg.unproject_by == "face"
+        if not face_mode:   # the face path needs no UV atlas
+            unwrap_future = pio.async_executor().submit(_unwrap_host)
 
         # ---- project + sparse images ----------------------------------
         with timer.stage("project"):
@@ -290,6 +292,32 @@ class Pipeline:
                     cfg.texture_gen_method, self.inpainter)
                 pio.save_rgb_stack_async(inpainted, cached)
 
+        # ---- face-mode unprojection (unproject_by='face') --------------
+        if face_mode:
+            from . import face_assign as pface
+
+            with timer.stage("unproject"):
+                neighbors = pface.face_adjacency_neighbors(faces)
+                counts = pface.face_view_pixel_counts(
+                    proj.face_idxs, len(faces_p))[:n_faces].cpu().numpy()
+                sim = (f_normals[:n_faces] @ self.rig.base_dirs.T
+                       ).cpu().numpy()
+                if cfg.naive_face_view:
+                    fv_ids = sim.argmax(axis=1).astype(np.int64)
+                else:
+                    fv_ids = pface.assign_face_views(neighbors, counts, sim)
+                f_uvs = pface.face_corner_uvs(
+                    self.rig, verts_p, faces, proj.uv_centers,
+                    proj.uv_scales, proj.padding, scale_factors, fv_ids)
+            with timer.stage("export"):
+                obj_path = pexport.save_multi_material_obj(
+                    verts, faces, fv_ids, f_uvs, inpainted,
+                    os.path.join(out_root, "models"))
+                pio.flush_async_io()
+            if log:
+                log.info("stage timings:\n" + timer.report())
+            return obj_path
+
         # ---- unwrap result + atlas bake -------------------------------
         with timer.stage("unwrap"):
             uvs, face_uv_idx = unwrap_future.result()
@@ -319,13 +347,22 @@ class Pipeline:
                     verts, faces, uvs, face_uv_idx, up.atlas_img,
                     up.atlas_painted, atlas["mask"],
                     atlas["per_atlas_pixel_face_id"])
-            elif cfg.complete_unseen_by == "unproject":
+            elif cfg.complete_unseen_by == "optimize":
+                from ..models.texture_field import fit_and_paint
+
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(0)
+                # the padded pair: the duplicated points weight the MSE,
+                # as in the JAX package
+                atlas_img = fit_and_paint(
+                    up.atlas_img, up.atlas_painted, atlas["gb_pos"],
+                    atlas["mask"], torch.as_tensor(xyz_p, device=dev),
+                    colors, generator=gen)
+                atlas_img = pcomplete.dilate_atlas(atlas_img,
+                                                   up.atlas_painted)
+            else:  # 'unproject'
                 atlas_img = pcomplete.dilate_atlas(up.atlas_img,
                                                    up.atlas_painted)
-            else:
-                raise NotImplementedError(
-                    f"complete_unseen_by={cfg.complete_unseen_by!r}: a "
-                    "later port slice")
 
         # ---- optimize -------------------------------------------------
         if cfg.optimize_from and cfg.optimize_from != "None":

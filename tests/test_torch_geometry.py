@@ -274,7 +274,142 @@ def test_empty_surface_retries_with_hoppe(monkeypatch):
     assert 0.45 < np.median(r) < 0.55
 
 
-def test_marching_tets_is_not_ported():
-    with pytest.raises(NotImplementedError, match="tets"):
-        tgeo.reconstruct_mesh(_sphere(100), "SPR", 16, 100, iso_method="tets",
-                              device="cpu")
+def _noisy_sphere_field(res, seed):
+    ax = np.linspace(tgeo.GRID_LO, tgeo.GRID_HI, res, dtype=np.float32)
+    g = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), -1)
+    rng = np.random.default_rng(seed)
+    f = (np.linalg.norm(g - np.array([0.05, -0.03, 0.02]), axis=-1) - 0.4
+         + 0.02 * rng.standard_normal(g.shape[:3])).astype(np.float32)
+    return f, ax
+
+
+@pytest.mark.parametrize("res", [16, 24, 32])
+def test_marching_tets_matches(res):
+    # an off-centre sphere with noise (bumps, cells of every case): the
+    # JAX package's vertex and face order and edge keys
+    f, ax = _noisy_sphere_field(res, res)
+    jv, jf, jk = jiso.marching_tets(f, ax, return_edge_keys=True)
+    tv, tf, tk = tiso.marching_tets(torch.as_tensor(f), ax,
+                                    return_edge_keys=True)
+    assert len(tf) > 1000
+    np.testing.assert_array_equal(tf, jf)
+    np.testing.assert_array_equal(tk, jk)
+    np.testing.assert_allclose(tv, jv, atol=1e-6)
+    # inside -> outside winding: faces point away from the centre
+    tri = tv[tf]
+    n = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    out = tri.mean(1) - np.array([0.05, -0.03, 0.02])
+    assert ((n * out).sum(1) > 0).mean() > 0.95
+
+
+def _tets_mesh():
+    f, ax = _noisy_sphere_field(48, 0)
+    return tiso.marching_tets(torch.as_tensor(f), ax)
+
+
+@pytest.mark.parametrize("res", [8, 20, 64])
+def test_cluster_once_matches(res):
+    v, f = _tets_mesh()
+    jv, jf = jgeo._cluster_once(v, f, res)
+    tv, tf = tgeo._cluster_once(v, f, res)
+    np.testing.assert_array_equal(tf, jf)
+    np.testing.assert_array_equal(tv, jv)
+
+
+def _jax_qem_fails(monkeypatch):
+    """The JAX package's decimation tries its QEM first; make it fail so
+    that it clusters (any exception takes it there)."""
+    def fail(*a, **k):
+        raise RuntimeError("qem_simplify failed rc=-1")
+    monkeypatch.setattr(jqem, "simplify", fail)
+
+
+def test_decimate_vertex_clustering_matches(monkeypatch):
+    _jax_qem_fails(monkeypatch)
+    v, f = _tets_mesh()
+    for target in (2000, 500, len(f) + 1):
+        jv, jf = jgeo.decimate_vertex_clustering(v, f, target)
+        tv, tf = tgeo.decimate_vertex_clustering(v, f, target)
+        np.testing.assert_array_equal(tf, jf)
+        np.testing.assert_array_equal(tv, jv)
+        assert len(tf) <= 1.3 * target
+
+
+def test_qem_error_code_decimates_by_clustering(monkeypatch):
+    # the QEM returning an error code on the mesh: reconstruct_mesh
+    # clusters, as the JAX package does
+    _jax_qem_fails(monkeypatch)
+
+    def rc_error(*a, **k):
+        raise tqem.QEMFailed("qem_simplify failed rc=-1")
+
+    monkeypatch.setattr(tqem, "simplify", rc_error)
+    called = []
+    real = tgeo.decimate_vertex_clustering
+    monkeypatch.setattr(tgeo, "decimate_vertex_clustering",
+                        lambda *a: called.append(a[2]) or real(*a))
+    pts = _sphere()
+    want = jgeo.reconstruct_mesh(pts, "SPR", grid_res=RES, target_faces=2000)
+    with pytest.warns(UserWarning, match="rc=-1.*clustering"):
+        got = tgeo.reconstruct_mesh(pts, "SPR", grid_res=RES,
+                                    target_faces=2000, device="cpu")
+    assert called == [2000]
+    # the fields differ by rounding (test_poisson_indicator_grid_matches),
+    # so a cell's vertex mean may too
+    assert abs(len(got[1]) - len(want[1])) <= 0.01 * len(want[1])
+    assert _chamfer(got[0], want[0]) <= 1e-3
+
+
+def test_failed_qem_build_raises(monkeypatch):
+    import subprocess
+
+    def no_build():
+        raise subprocess.CalledProcessError(1, ["g++"])
+
+    monkeypatch.setattr(tqem, "_LIB", None)
+    monkeypatch.setattr(tqem, "build", no_build)
+    with pytest.raises(subprocess.CalledProcessError):
+        tgeo.reconstruct_mesh(_sphere(), "SPR", grid_res=24,
+                              target_faces=200, device="cpu")
+
+
+def test_refine_orientation_by_visibility_matches():
+    # the sphere's outward normals with a cap (z > 0.3, 764 points)
+    # flipped: both packages turn every normal outward again.  The votes
+    # are the same host arithmetic on the same hulls; the smoothing reads
+    # kNN ranks, which can swap at equal fp32 distances (none here)
+    pts = _sphere()
+    d = pts / np.linalg.norm(pts, axis=1, keepdims=True)
+    nrm = d.copy()
+    cap = pts[:, 2] > 0.3
+    nrm[cap] *= -1
+    want = jsdf.refine_orientation_by_visibility(pts, nrm)
+    got = tsdf.refine_orientation_by_visibility(pts, nrm, device="cpu")
+    assert cap.sum() > 500
+    np.testing.assert_array_equal(np.sign((got * nrm).sum(1)),
+                                  np.sign((want * nrm).sum(1)))
+    assert ((got * d).sum(1) > 0).all()
+    # the flag on estimate_oriented_normals
+    on = tsdf.estimate_oriented_normals(pts, visibility_refine=True,
+                                        device="cpu")
+    off = tsdf.estimate_oriented_normals(pts, device="cpu")
+    np.testing.assert_array_equal(
+        on, tsdf.refine_orientation_by_visibility(pts, off, device="cpu"))
+
+
+def test_reconstruct_mesh_tets_matches_jax():
+    # iso_method 'tets' through reconstruct_mesh (SPR at 48^3, 2000 faces)
+    # against the JAX package's: face counts within 1%, chamfer <= 1e-3
+    # (the f32 Poisson fields differ by rounding, so QEM's collapse order
+    # may too)
+    pts = _sphere()
+    jv, jf = jgeo.reconstruct_mesh(pts, "SPR", grid_res=RES,
+                                   target_faces=2000, iso_method="tets")
+    tv, tf = tgeo.reconstruct_mesh(pts, "SPR", grid_res=RES,
+                                   target_faces=2000, iso_method="tets",
+                                   device="cpu")
+    assert 1600 <= len(tf) <= 2000
+    assert abs(len(tf) - len(jf)) <= 0.01 * len(jf)
+    assert _chamfer(tv, jv) <= 1e-3
+    r = np.linalg.norm(tv, axis=1)
+    assert 0.45 < np.median(r) < 0.55

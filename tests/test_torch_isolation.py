@@ -55,7 +55,9 @@ def test_port_imports_nothing_forbidden():
                 "cli/render_meshes.py", "cli/run_evaluation.py",
                 "cli/eval_meshes.py", "cli/eval_point2surf.py",
                 "cli/geometry_table.py", "kernels/quant.py",
-                "cli/w8a8_fidelity.py"):
+                "cli/w8a8_fidelity.py", "models/texture_field/__init__.py",
+                "models/texture_field/triplane.py",
+                "pipeline/face_assign.py"):
         assert os.path.join("pointdreamer_tpu_torch", mod) in scanned
     for path in _port_sources():
         with open(path) as fh:
@@ -95,7 +97,8 @@ def test_create_without_a_device_needs_cuda():
                                   "run_dataset", "run_roundtrip",
                                   "render_meshes", "run_evaluation",
                                   "eval_meshes", "eval_point2surf",
-                                  "geometry_table", "w8a8_fidelity"])
+                                  "geometry_table", "w8a8_fidelity",
+                                  "triplane_field", "get_textured_mesh"])
 def test_helpers_without_a_device_need_cuda(call, tmp_path):
     # the helpers an entry point calls default to device='cuda' too
     if torch.cuda.is_available():
@@ -110,7 +113,7 @@ def test_helpers_without_a_device_need_cuda(call, tmp_path):
                                             w8a8_fidelity)
     from pointdreamer_tpu_torch.eval import render, run_evaluation as reval
     from pointdreamer_tpu_torch.eval.selfparity import run_roundtrip
-    from pointdreamer_tpu_torch.models import perception
+    from pointdreamer_tpu_torch.models import perception, texture_field
     from pointdreamer_tpu_torch.pipeline.batch import run_dataset
     from pointdreamer_tpu_torch.models.occupancy import load_poco_field
     from pointdreamer_tpu_torch.pipeline.geometry import reconstruct_mesh
@@ -155,7 +158,10 @@ def test_helpers_without_a_device_need_cuda(call, tmp_path):
                ["--gendir", "x", "--gtdir", "y"]),
            "geometry_table": lambda: geometry_table.main(["--data", "x"]),
            "w8a8_fidelity": lambda: w8a8_fidelity.main(
-               ["--pc_file", "x.ply", "--calib_pc", "y.ply"])}
+               ["--pc_file", "x.ply", "--calib_pc", "y.ply"]),
+           "triplane_field": lambda: texture_field.TriplaneColorField(),
+           "get_textured_mesh": lambda: texture_field.get_textured_mesh(
+               pts[:6], tri, pts, pts + 0.5, atlas_res=32)}
     with pytest.raises((RuntimeError, AssertionError),
                        match="CUDA|Torch not compiled"):
         run[call]()
