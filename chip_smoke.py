@@ -178,6 +178,27 @@ Phases (each prints its own lines; any failure exits non-zero):
                 decimate_vertex_clustering of both, equal;
                 refine_orientation_by_visibility card against CPU (signs
                 agree >= 99.9%).  Seconds of each, and the phase's wall.
+ 11. restore  : the rest of diffusion and NKSR.  (a) cli/ddnm_restore in
+     & NKSR     dataset mode (IMAGENET, sr4, batch 8, 100 steps) over 8
+                synthetic PNGs of mixed sizes (BOX halving and BICUBIC) on
+                the seeded random 552.8M bf16 UNet: K2 = 1600, 8 finite
+                outputs in [0, 1], the restored and degraded PNGs; seconds
+                beside phase 4's inpaint.  (b) ddnm_plus_sample, card
+                against CPU, for all ten --deg at sigma_y 0 and 0.05 (tiny
+                fp32 UNet at 32^2, the same draws, 10 steps; 1e-4 of the
+                largest value).  (c) one timed forward each at batch 8:
+                the classifier (EncoderUNetModel at the public 256x256
+                classifier's widths, attention pool) at 256^2, SuperRes
+                over the 552.8M torso 64^2 -> 256^2, the DDPM UNet at
+                celeba_plan at 256^2; K2 launches 7, 16, 0; K2 against its
+                plain version at the classifier's shapes (T/heads 1024/4,
+                256/8, 64/8; one bf16 ulp; kernel table row
+                attention_qkv_encoder); each model at a tiny width, card
+                against CPU (1e-4 relative).  (d) recon_one_shape_NKSR at
+                its defaults on the cloud alone, card and CPU (chamfer <
+                1e-3; distance to the cube beside phase 5's), stage
+                seconds, the QEM to 10,000 faces; geometry_table
+                --backends NKSR on the card.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2320,6 +2341,363 @@ def tets_phase(dev, cfg, ply_alone: str, spr_dist: float) -> None:
              f"{agree}")
 
 
+# ---- phase 11: the rest of diffusion and NKSR --------------------------
+
+# (width, height) of the restore's inputs: a short side >= 512 takes the
+# BOX halving before the BICUBIC scale, the odd sizes the BICUBIC alone
+RESTORE_SIZES = ((700, 520), (1030, 600), (512, 777), (640, 512),
+                 (300, 260), (257, 301), (333, 291), (401, 389))
+# the public 256x256 classifier's widths (the defaults of the JAX package's
+# convert_encoder_state_dict): width 128, depth 2, attention at ds 8/16/32
+# with 64-channel heads, 1000 classes, attention pool
+CLASSIFIER_256 = dict(model_channels=128, out_channels=1000,
+                      pool="attention", image_size=256)
+# the tiny UNet of the card-against-CPU checks (fp32)
+TINY_UNET = dict(model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
+                 attention_ds=(2,), num_head_channels=16)
+
+
+def _perturbed(model, seed: int, scale: float = 0.05):
+    """`model` (on the CPU) with seeded random init plus noise on every
+    parameter, so that no layer is its zero init."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=gen) * scale)
+    return model.eval()
+
+
+def restore_phase(dev, work: str, bf16_inpaint: float, steps: int = 100,
+                  batch: int = 8) -> None:
+    """Phase 11 (a): cli/ddnm_restore in dataset mode (IMAGENET
+    preprocessing, sr4) over 8 synthetic PNGs of mixed sizes on the seeded
+    random 552.8M bf16 UNet: K2 = 16 x steps launches, 8 finite outputs in
+    [0, 1], the restored and the degraded PNGs; seconds beside phase 4's
+    inpaint."""
+    import numpy as np
+    import torch
+
+    from pointdreamer_tpu_torch import io as pio
+    from pointdreamer_tpu_torch import kernels
+    from pointdreamer_tpu_torch.cli import ddnm_restore
+    from pointdreamer_tpu_torch.models.diffusion import svd_ops
+
+    src = os.path.join(work, "restore")
+    out = os.path.join(work, "restore_out")
+    rng = np.random.default_rng(0)
+    for i, (w, h) in enumerate(RESTORE_SIZES):
+        yy, xx = np.mgrid[0:h, 0:w] / max(w, h)
+        img = np.stack([0.5 + 0.4 * np.sin(6 * xx + i), 0.5 + 0.4 * np.cos(
+            5 * yy), 0.5 + 0.3 * np.sin(4 * (xx + yy))], -1)
+        img = np.clip(img + rng.normal(0, 0.05, img.shape), 0, 1)
+        pio.save_rgb(img, os.path.join(src, f"img{i}.png"))
+    runs = []
+    plain = svd_ops.ddnm_plus_sample
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = plain(*a, **k)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, y))
+        return y
+
+    svd_ops.ddnm_plus_sample = timed
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        ddnm_restore.main(["--image_dir", src, "--dataset", "IMAGENET",
+                           "--deg", "sr4", "--batch", str(batch),
+                           "--steps", str(steps), "--out", out])
+    finally:
+        svd_ops.ddnm_plus_sample = plain
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    ys = torch.cat([y for _, y in runs]) if runs else torch.zeros(0)
+    finite = bool(torch.isfinite(ys).all())
+    lo, hi = (float(ys.min()), float(ys.max())) if ys.numel() else (0, 0)
+    files = sorted(os.listdir(out)) if os.path.isdir(out) else []
+    want = sorted(f"img{i}{s}.png" for i in range(len(RESTORE_SIZES))
+                  for s in ("", "_degraded"))
+    shapes = {pio.load_png(os.path.join(out, f)).shape for f in files}
+    print(f"[restore] ddnm_restore --dataset IMAGENET --deg sr4 --batch "
+          f"{batch} --steps {steps} over {len(RESTORE_SIZES)} PNGs "
+          f"{list(RESTORE_SIZES)}: {wall:.3f} s (the sampler "
+          f"{sum(t for t, _ in runs):.3f} s over {len(runs)} batch(es); "
+          f"phase 4's inpaint, 8 views at 256^2 x 100 steps: "
+          f"{bf16_inpaint:.4f} s); launches {json.dumps(launches)}; outputs "
+          f"{tuple(ys.shape)} finite {finite} in [{lo:.4f}, {hi:.4f}]; "
+          f"{len(files)} PNGs {sorted(shapes)}")
+    if launches.get("attention_qkv") != 16 * steps:
+        fail(f"restore: K2 launched {launches.get('attention_qkv')} times, "
+             f"not {16 * steps}")
+    if not (ys.shape[0] == len(RESTORE_SIZES) and finite and lo >= 0
+            and hi <= 1):
+        fail(f"restore: outputs {tuple(ys.shape)}, finite {finite}, range "
+             f"[{lo}, {hi}]")
+    if files != want or shapes != {(256, 256, 3)}:
+        fail(f"restore: wrote {files} of shapes {shapes}")
+
+
+def operators_phase(dev) -> None:
+    """Phase 11 (b): ddnm_plus_sample on the card against the port's CPU
+    run for every --deg of the CLI at sigma_y 0 and 0.05: a tiny fp32 UNet
+    at 32^2 (batch 2), the same injected draws, 10 steps; within 1e-4 of
+    the largest value."""
+    import copy
+
+    import torch
+
+    from pointdreamer_tpu_torch.cli.ddnm_restore import (DEGRADATIONS,
+                                                         degradation)
+    from pointdreamer_tpu_torch.models.diffusion import svd_ops
+    from pointdreamer_tpu_torch.models.diffusion.unet import (UNetModel,
+                                                              init_random_)
+
+    cpu_m = _perturbed(init_random_(UNetModel(**TINY_UNET), 0), 1)
+    card_m = copy.deepcopy(cpu_m).to(dev)
+    B, S, T = 2, 32, 10
+    gen = torch.Generator().manual_seed(2)
+    x = torch.rand((B, S, S, 3), generator=gen) * 2 - 1
+    noise = torch.randn((1 + T, B, S, S, 3), generator=gen)
+    errs = {}
+    t0 = time.perf_counter()
+    for deg in DEGRADATIONS:
+        for sy in (0.0, 0.05):
+            res = []
+            for d, m in (("cpu", cpu_m), (dev, card_m)):
+                op = degradation(deg, S, S, 1234, d)
+                res.append(svd_ops.ddnm_plus_sample(
+                    m, op.A(x.to(d)), op, sigma_y=sy, t_sampling=T,
+                    noise=noise.to(d)).cpu())
+            errs[deg, sy] = float((res[1] - res[0]).abs().max()
+                                  / res[0].abs().max())
+    worst = max(errs, key=errs.get)
+    print(f"[operators] {len(DEGRADATIONS)} degradations x sigma_y {{0, "
+          f"0.05}}, tiny fp32 UNet at {S}^2, {T} steps, card against CPU "
+          f"on the same draws: max |d| / max |cpu| worst {errs[worst]:.3g} "
+          f"({worst[0]}, sigma_y {worst[1]}), all "
+          + json.dumps({f"{k[0]}@{k[1]}": round(v, 9)
+                        for k, v in errs.items()})
+          + f" in {time.perf_counter() - t0:.2f} s")
+    if not errs[worst] <= 1e-4:
+        fail(f"operators: {worst} card vs CPU {errs[worst]} (bound 1e-4)")
+
+
+# K2 at the 256x256 classifier's attention shapes: (T, heads, launches a
+# forward), hd 64 (levels ds 8, 16, 32 and the middle block)
+ENCODER_K2 = ((1024, 4, 2), (256, 8, 2), (64, 8, 3))
+
+
+def encoder_attention_row(dev, gen) -> dict:
+    """K2 against its plain version at the classifier's shapes (bf16,
+    batch 8): within one bf16 ulp of the largest output; ms through the
+    wrapper and on the device (CUDA graph), SDPA's, the bound.  Returns the
+    kernel table row (summed over one forward's 7 launches)."""
+    import torch
+    import torch.nn.functional as F_
+
+    from pointdreamer_tpu_torch.kernels import BF16_OPS_PER_S
+    from pointdreamer_tpu_torch.models.diffusion.attention import (
+        attention_qkv, attention_qkv_plain)
+
+    row = dict(name="attention_qkv_encoder", route="cuda",
+               source="pointdreamer_tpu_torch/csrc/attention.cu",
+               replaces="pointdreamer_tpu/kernels/attention_pallas.py:97",
+               max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
+               library_ms=0.0, library_device_ms=0.0)
+    by = ops = 0.0
+    for T, heads, n in ENCODER_K2:
+        B, C = 8, heads * 64
+        qkv = torch.randn((B, T, 3 * C), generator=gen, device=dev,
+                          dtype=torch.float32).to(torch.bfloat16)
+        out = attention_qkv(qkv, heads)
+        ref = attention_qkv_plain(qkv, heads)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        ulp = float(bf16_ulp(ref.float().abs().max()))
+        if not err <= ulp:
+            fail(f"K2 encoder T={T} heads={heads}: max abs err {err}, one "
+                 f"bf16 ulp of max |out| {ulp}")
+        q, k, v = qkv.reshape(B, T, heads, 3, 64).permute(3, 0, 2, 1, 4)
+        ms = cuda_ms(lambda: attention_qkv(qkv, heads))
+        pms = cuda_ms(lambda: attention_qkv_plain(qkv, heads), reps=3)
+        lms = cuda_ms(lambda: F_.scaled_dot_product_attention(q, k, v))
+        gms = graph_ms(lambda: attention_qkv(qkv, heads))
+        glms = graph_ms(lambda: F_.scaled_dot_product_attention(q, k, v))
+        b_x = B * T * 3 * C * 2 + B * T * C * 2
+        o_x = 4.0 * B * heads * T * T * 64
+        b_ms, b_by = bound(b_x, o_x, BF16_OPS_PER_S)
+        print(f"[K2 attention_qkv] classifier B={B} T={T} heads={heads} "
+              f"max_abs_err={err:.3g} (one bf16 ulp of max |out|: {ulp:.3g})"
+              f" ms={ms:.4f} device_ms={gms:.4f} plain_ms={pms:.4f} "
+              f"sdpa_ms={lms:.4f} sdpa_device_ms={glms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) x{n} per forward")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        for key, val in (("ms", ms), ("device_ms", gms), ("plain_ms", pms),
+                         ("library_ms", lms), ("library_device_ms", glms)):
+            row[key] += n * val
+        by += n * b_x
+        ops += n * o_x
+    row["bound_ms"], row["bound_by"] = bound(by, ops, BF16_OPS_PER_S)
+    print(f"[K2 attention_qkv] classifier, per forward (7 launches): "
+          f"ms={row['ms']:.4f} device_ms={row['device_ms']:.4f} "
+          f"plain_ms={row['plain_ms']:.4f} sdpa_ms={row['library_ms']:.4f} "
+          f"sdpa_device_ms={row['library_device_ms']:.4f} "
+          f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+    return row
+
+
+def models_phase(dev, gen, table: list, B: int = 8,
+                 side: int = 256) -> None:
+    """Phase 11 (c): one timed forward each at batch 8 on the card (the
+    classifier at the public 256x256 classifier's widths, attention pool,
+    at 256^2; SuperRes over the 552.8M torso, 64^2 -> 256^2, both bf16;
+    the DDPM UNet at celeba_plan, fp32, 256^2) with K2's launches (7, 16,
+    0); K2 at the classifier's shapes (a kernel table row); each model at
+    a tiny width, card against CPU, within 1e-4 of the largest output."""
+    import copy
+
+    import torch
+
+    from pointdreamer_tpu_torch import kernels
+    from pointdreamer_tpu_torch.models import diffusion as D
+    from pointdreamer_tpu_torch.models.diffusion.unet import init_random_
+
+    row = encoder_attention_row(dev, gen)
+    x = torch.randn((B, side, side, 3), generator=gen, device=dev)
+    low = torch.rand((B, side // 4, side // 4, 3), generator=gen, device=dev)
+    t = torch.full((B,), 500.0, device=dev)
+    cases = (
+        ("classifier", 7, lambda: D.build_unet(
+            dev, cls=D.EncoderUNetModel,
+            model_kwargs=CLASSIFIER_256), lambda m: m(x, t)),
+        ("superres", 16, lambda: D.build_unet(dev, cls=D.SuperResModel),
+         lambda m: m(x, t, low)),
+        ("ddpm", 0, lambda: D.build_ddpm_unet(D.celeba_plan(), dev),
+         lambda m: m(x, t)))
+    for name, want_k2, build, call in cases:
+        model = build()
+        n_params = sum(p.numel() for p in model.parameters())
+        with torch.no_grad():
+            kernels.reset_launches()
+            y = call(model)
+            torch.cuda.synchronize()
+            k2 = kernels.LAUNCHES["attention_qkv"]
+            ms = cuda_ms(lambda: call(model), reps=5, warmup=1)
+        ok = bool(torch.isfinite(y).all())
+        print(f"[models] {name}: {n_params} parameters, batch {B}, output "
+              f"{tuple(y.shape)} finite {ok}; forward {ms:.3f} ms; K2 "
+              f"launches {k2} (want {want_k2}); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        if k2 != want_k2 or not ok:
+            fail(f"{name}: K2 launched {k2} times (want {want_k2}), finite "
+                 f"{ok}")
+        if name == "classifier":
+            row["launches"] = k2
+        del model, y
+        torch.cuda.empty_cache()
+    table.append(row)
+
+    # tiny widths, card against CPU (fp32; K2's fp32 path on the card)
+    gc = torch.Generator().manual_seed(3)
+    xs = torch.randn((2, 16, 16, 3), generator=gc)
+    lows = torch.rand((2, 8, 8, 3), generator=gc)
+    ts = torch.tensor([10.0, 700.0])
+    tiny = (
+        ("classifier", init_random_(D.EncoderUNetModel(
+            **TINY_UNET, out_channels=10, pool="attention", image_size=16)),
+         lambda m, d: m(xs.to(d), ts.to(d))),
+        ("superres", init_random_(D.SuperResModel(**TINY_UNET)),
+         lambda m, d: m(xs.to(d), ts.to(d), lows.to(d))),
+        ("ddpm", D.init_ddpm_(D.DDPMUNet(D.DDPMPlan(
+            ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,),
+            resolution=16))), lambda m, d: m(xs.to(d), ts.to(d))))
+    for name, cpu_m, call in tiny:
+        cpu_m = _perturbed(cpu_m, 4)
+        card_m = copy.deepcopy(cpu_m).to(dev)
+        with torch.no_grad():
+            want = call(cpu_m, "cpu")
+            got = call(card_m, dev).cpu()
+        rel = float((got - want).abs().max() / want.abs().max())
+        print(f"[models] {name} at a tiny width, card against CPU: max |d| /"
+              f" max |cpu| {rel:.3g} (bound 1e-4)")
+        if not rel <= 1e-4:
+            fail(f"{name}: card vs CPU {rel}")
+
+
+def nksr_phase(dev, ply_alone: str, work: str, spr_dist: float) -> None:
+    """Phase 11 (d): recon_one_shape_NKSR at its defaults (4,096 centres,
+    grid 128, mise_iter 2) on the cloud alone, on the card (after a small
+    warm-up) and through the port's CPU path: the two meshes within a
+    chamfer of 1e-3, the distance to the cube beside phase 5's SPR mesh,
+    each stage's seconds, the QEM of the card's mesh to 10,000 faces; then
+    cli/geometry_table --backends NKSR once on the card."""
+    import numpy as np
+    import torch
+
+    from pointdreamer_tpu_torch import io as pio
+    from pointdreamer_tpu_torch.baselines.nksr import recon_one_shape_NKSR
+    from pointdreamer_tpu_torch.cli import geometry_table
+    from pointdreamer_tpu_torch.log import StageTimer
+    from pointdreamer_tpu_torch.ops import qem
+    from pointdreamer_tpu_torch.pipeline.geometry import normalize_points
+
+    xyz, rgb = pio.read_ply_xyzrgb(ply_alone)
+    xyz_n, _, _ = normalize_points(xyz)
+    rgb01 = rgb.astype(np.float32) / 255.0
+    recon_one_shape_NKSR(xyz_n, rgb01, grid_res=32, device=dev)  # warm-up
+    timers = {}
+    meshes = {}
+    for d in (dev, "cpu"):
+        timers[d] = StageTimer(None, sync=True)
+        t0 = time.perf_counter()
+        meshes[d] = recon_one_shape_NKSR(xyz_n, rgb01, device=d,
+                                         timer=timers[d])
+        torch.cuda.synchronize()
+        timers[d].record("wall", time.perf_counter() - t0)
+    (v, f, c), (vc, fc, cc) = meshes[dev], meshes["cpu"]
+    tv, tf = torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev)
+    cv, cf = torch.as_tensor(vc, device=dev), torch.as_tensor(fc, device=dev)
+    chamfer = 0.5 * float(to_surface(tv, cv, cf).mean()
+                          + to_surface(cv, tv, tf).mean())
+    dist, outward = mesh_vs_cube(v, f, xyz_n)
+    t0 = time.perf_counter()
+    _, fq = qem.simplify(v, f, 10000)
+    t_qem = time.perf_counter() - t0
+    # inverse-distance weights summing to one, in fp32
+    ok_col = c is not None and bool(np.isfinite(c).all()) and \
+        float(c.min()) >= -1e-6 and float(c.max()) <= 1 + 1e-6
+    for d in (dev, "cpu"):
+        print(f"[nksr] recon_one_shape_NKSR on {d}: " + json.dumps(
+            {k: round(s, 4) for k, s in timers[d].times.items()}))
+    same = f.shape == fc.shape and bool((f == fc).all())
+    print(f"[nksr] card mesh {len(v)} vertices {len(f)} faces (CPU "
+          f"{len(fc)}), same faces {same}; chamfer to the CPU mesh {chamfer:.3g} (bound 1e-3); distance "
+          f"to the cube mean {dist.mean():.5f} p95 "
+          f"{np.percentile(dist, 95):.5f} (SPR, phase 5: {spr_dist:.5f}); "
+          f"outward {outward:.5f}; colours in [0, 1] {ok_col}; the QEM of "
+          f"the card's mesh to {len(fq)} faces {t_qem:.3f} s")
+    if not (len(f) and chamfer < 1e-3 and ok_col):
+        fail(f"nksr: {len(f)} faces, chamfer {chamfer}, colours {ok_col}")
+
+    data = os.path.join(work, "in_nksr")
+    os.makedirs(data, exist_ok=True)
+    shutil.copy(ply_alone, os.path.join(data, "cube.ply"))
+    out = os.path.join(work, "geom_nksr.json")
+    t0 = time.perf_counter()
+    geometry_table.main(["--data", data, "--backends", "NKSR", "--out", out])
+    row = json.load(open(out))["cube"]["NKSR"]
+    print(f"[nksr] geometry_table --backends NKSR on the card "
+          f"{time.perf_counter() - t0:.3f} s: {json.dumps(row)}")
+    if not (0 < row["n_faces"] <= 10000
+            and all(np.isfinite(v) for v in row.values())):
+        fail(f"geometry_table NKSR row {row}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2726,6 +3104,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     tets_phase(dev, cfg, ply_alone, spr_dist)
     print(f"[options] phase 10 {time.perf_counter() - t10:.2f} s")
+
+    # ---- 11. the restore CLI, the operators, the other models, NKSR ----
+    t11 = time.perf_counter()
+    restore_phase(dev, work, bf16_inpaint)
+    torch.cuda.empty_cache()
+    operators_phase(dev)
+    models_phase(dev, gen, table)
+    torch.cuda.empty_cache()
+    nksr_phase(dev, ply_alone, work, spr_dist)
+    print(f"[restore & nksr] phase 11 {time.perf_counter() - t11:.2f} s")
 
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,8 @@ oriented PCA normals.
         [--backends SPR hoppe POCO --poco_checkpoint poco.pkl]
 
 Prints a markdown table and writes the JSON.  Backends: SPR (screened
-FFT-Poisson), hoppe, POCO (the occupancy network of `--poco_checkpoint`).
-NKSR is not ported yet.
+FFT-Poisson), hoppe, NKSR (the biharmonic kernel field,
+baselines/nksr.py), POCO (the occupancy network of `--poco_checkpoint`).
 """
 from __future__ import annotations
 
@@ -45,7 +45,8 @@ def main(argv=None):
     ap.add_argument("--out", default="geom_table.json")
     ap.add_argument("--grid_res", type=int, default=128)
     ap.add_argument("--target_faces", type=int, default=10000)
-    ap.add_argument("--backends", nargs="+", default=["SPR", "hoppe"])
+    ap.add_argument("--backends", nargs="+",
+                    default=["SPR", "hoppe", "NKSR"])
     ap.add_argument("--poco_checkpoint", default=None,
                     help="POCO checkpoint (either package's, or the "
                          "reference's checkpoint.pth) for the POCO backend")
@@ -58,10 +59,6 @@ def main(argv=None):
     from ..pipeline.pipeline import resolve_device
 
     dev = resolve_device(args.device)
-    if "NKSR" in args.backends:
-        raise NotImplementedError(
-            "NKSR: baselines/nksr.py is not ported yet (ROADMAP Queue A "
-            "item 7)")
     poco_apply = None
     if "POCO" in args.backends:
         if not args.poco_checkpoint:
@@ -81,9 +78,17 @@ def main(argv=None):
         results[name] = {}
         for backend in args.backends:
             t0 = time.time()
-            v, f = reconstruct_mesh(xyz_n, backend, grid_res=args.grid_res,
-                                    target_faces=args.target_faces,
-                                    poco_apply=poco_apply, device=dev)
+            if backend == "NKSR":
+                from ..baselines.nksr import recon_one_shape_NKSR
+
+                v, f, _ = recon_one_shape_NKSR(
+                    xyz_n, None, grid_res=args.grid_res,
+                    simplify_face_num=args.target_faces, device=dev)
+            else:
+                v, f = reconstruct_mesh(
+                    xyz_n, backend, grid_res=args.grid_res,
+                    target_faces=args.target_faces, poco_apply=poco_apply,
+                    device=dev)
             m = score_mesh(v, f, xyz_n, gt_nrm, device=dev)
             m["recon_sec"] = round(time.time() - t0, 3)
             results[name][backend] = m

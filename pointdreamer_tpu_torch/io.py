@@ -3,7 +3,10 @@ images.
 
 Twin of pointdreamer_tpu's core/io.py without PIL or cv2: PNGs are written
 and read with zlib + struct (8-bit gray, gray+alpha, RGB and RGBA; all
-five row filters on read, filter 0 on write).  Image writers take numpy
+five row filters on read, filter 0 on write); binary and ASCII PPM/PGM
+(maxval 255) and uncompressed 24/32-bit BMP are read too.  JPEG and WebP
+need a decoder the port does not have yet (ROADMAP Queue A, "a numpy
+baseline-JPEG decoder"): reading one raises.  Image writers take numpy
 arrays or torch tensors; a device tensor is quantized to uint8 on the
 device before the one host transfer.
 """
@@ -381,12 +384,88 @@ def load_png(path: str) -> np.ndarray:
         return decode_png(f.read())
 
 
-def load_rgb(path: str) -> np.ndarray:
-    """PNG -> HWC float32 RGB in [0,1] (alpha dropped, gray expanded)."""
-    a = load_png(path)
+def decode_pnm(data: bytes) -> np.ndarray:
+    """PPM (P6, P3) or PGM (P5, P2) bytes with maxval 255 -> uint8
+    [H,W,C]."""
+    magic = data[:2]
+    if magic not in (b"P2", b"P3", b"P5", b"P6"):
+        raise ValueError(f"unsupported PNM type {magic!r}")
+    fields, pos = [], 2
+    while len(fields) < 3:                     # width, height, maxval
+        while data[pos:pos + 1].isspace():
+            pos += 1
+        if data[pos:pos + 1] == b"#":
+            pos = data.index(b"\n", pos) + 1
+            continue
+        end = pos
+        while not data[end:end + 1].isspace():
+            end += 1
+        fields.append(int(data[pos:end]))
+        pos = end
+    w, h, maxval = fields
+    if maxval != 255:
+        raise ValueError(f"unsupported PNM maxval {maxval}")
+    c = 3 if magic in (b"P3", b"P6") else 1
+    if magic in (b"P5", b"P6"):                # one whitespace, then bytes
+        a = np.frombuffer(data, np.uint8, h * w * c, pos + 1)
+    else:
+        body = b" ".join(ln.split(b"#")[0]
+                         for ln in data[pos:].splitlines())
+        a = np.array(body.split()[:h * w * c], np.int64).astype(np.uint8)
+    return a.reshape(h, w, c).copy()
+
+
+def decode_bmp(data: bytes) -> np.ndarray:
+    """Uncompressed (BI_RGB / BI_BITFIELDS in BGRA order) 24- or 32-bit BMP
+    bytes -> uint8 [H,W,3], row 0 at the top."""
+    if data[:2] != b"BM":
+        raise ValueError("not a BMP")
+    offset, = struct.unpack_from("<I", data, 10)
+    w, h, _, bpp, comp = struct.unpack_from("<iiHHI", data, 18)
+    if bpp not in (24, 32) or comp not in (0, 3):
+        raise ValueError(f"unsupported BMP ({bpp} bits, compression {comp})")
+    c = bpp // 8
+    stride = (w * c + 3) // 4 * 4
+    rows = np.frombuffer(data, np.uint8, abs(h) * stride, offset)
+    a = rows.reshape(abs(h), stride)[:, :w * c].reshape(abs(h), w, c)
+    a = a[..., 2::-1]                          # BGR(A) -> RGB
+    return np.ascontiguousarray(a[::-1] if h > 0 else a)
+
+
+_DECODERS = {".png": decode_png, ".ppm": decode_pnm, ".pgm": decode_pnm,
+             ".pnm": decode_pnm, ".bmp": decode_bmp}
+UNSUPPORTED_IMAGES = (".jpg", ".jpeg", ".webp")
+
+
+def load_image(path: str) -> np.ndarray:
+    """A PNG, PPM/PGM or uncompressed BMP -> uint8 [H,W,C] as stored.
+    JPEG and WebP raise NotImplementedError: the port has no decoder for
+    them yet (ROADMAP Queue A, "a numpy baseline-JPEG decoder")."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in UNSUPPORTED_IMAGES:
+        raise NotImplementedError(
+            f"{path}: {ext} images need a decoder the port does not have "
+            "yet (ROADMAP Queue A: a numpy baseline-JPEG decoder); convert "
+            "them to PNG, PPM or BMP")
+    if ext not in _DECODERS:
+        raise ValueError(f"{path}: unknown image type {ext!r}")
+    with open(path, "rb") as f:
+        return _DECODERS[ext](f.read())
+
+
+def load_rgb_uint8(path: str) -> np.ndarray:
+    """`load_image` as RGB uint8 [H,W,3] (alpha dropped, gray expanded:
+    PIL's `convert("RGB")`)."""
+    a = load_image(path)
     if a.shape[-1] in (1, 2):
         a = np.repeat(a[..., :1], 3, axis=-1)
-    return a[..., :3].astype(np.float32) / 255.0
+    return np.ascontiguousarray(a[..., :3])
+
+
+def load_rgb(path: str) -> np.ndarray:
+    """An image (`load_image`'s types) -> HWC float32 RGB in [0,1] (alpha
+    dropped, gray expanded)."""
+    return load_rgb_uint8(path).astype(np.float32) / 255.0
 
 
 # --------------------------------------------------------------------------

@@ -1,24 +1,41 @@
-"""DDNM over the guided-diffusion UNet (twin of models/diffusion)."""
+"""DDNM over the guided-diffusion UNet (twin of models/diffusion): the
+inpainting sampler, the general DDNM+ sampler over the SVD degradation
+operators (`svd_ops`), the UNet and its SuperRes / classifier variants,
+the DDPM UNet of the CelebA-HQ checkpoints (`ddpm_unet`), the image-folder
+datasets and the checkpoint registry (`ckpt_util`)."""
 from __future__ import annotations
 
 import warnings
 
 import torch
 
+from . import ckpt_util, datasets, svd_ops
 from .ddnm import DDNMInpainter, ddnm_inpaint_batch, get_schedule_jump
-from .unet import UNetModel, imagenet256_unet, init_random_, quantize_unet_
+from .ddpm_unet import (DDPMPlan, DDPMUNet, build_ddpm_unet, celeba_plan,
+                        ddpm_params_from_jax, ddpm_timestep_embedding,
+                        init_ddpm_)
+from .svd_ops import SpectralOp, ddnm_plus_sample
+from .unet import (AttentionPool2d, EncoderUNetModel, SuperResModel,
+                   UNetModel, imagenet256_unet, init_random_, quantize_unet_,
+                   timestep_embedding)
 
 
-def build_unet(device, dtype=torch.bfloat16, seed: int = 0,
+def build_unet(device="cuda", dtype=torch.bfloat16, seed: int = 0,
                model_kwargs=None, checkpoint_path=None,
-               quant: bool = False) -> UNetModel:
-    """The UNet on `device` in compute dtype `dtype`: weights from a
-    guided-diffusion checkpoint, else a seeded random init drawn on the
+               quant: bool = False, cls=UNetModel) -> UNetModel:
+    """The UNet (`cls`: UNetModel, SuperResModel or EncoderUNetModel, with
+    `model_kwargs`; the 552.8M demo UNet when neither is given) on
+    `device` in compute dtype `dtype`: weights from a reference checkpoint
+    (its state dict as it is), else a seeded random init drawn on the
     device.  The module is built on the meta device first, so no host
     copy of the weights is ever made.  `quant`: the w8a8 torso, quantized
     on the device from the fp32 weights before the rest is cast."""
+    from ...pipeline.pipeline import resolve_device
+
+    device = resolve_device(device)
     with torch.device("meta"):
-        model = (UNetModel(**model_kwargs) if model_kwargs
+        model = (cls(**(model_kwargs or {}))
+                 if model_kwargs or cls is not UNetModel
                  else imagenet256_unet())
     model = model.to_empty(device=device)
     if checkpoint_path:
@@ -56,6 +73,12 @@ def load_inpainter(checkpoint_path=None, logger=None, device="cuda",
                          static_calib=quant_int8 and quant_static)
 
 
-__all__ = ["DDNMInpainter", "UNetModel", "build_unet", "ddnm_inpaint_batch",
-           "get_schedule_jump", "imagenet256_unet", "load_inpainter",
-           "quantize_unet_"]
+__all__ = ["AttentionPool2d", "DDNMInpainter", "DDPMPlan", "DDPMUNet",
+           "EncoderUNetModel", "SpectralOp", "SuperResModel", "UNetModel",
+           "build_ddpm_unet", "build_unet", "celeba_plan", "ckpt_util",
+           "datasets", "ddnm_inpaint_batch",
+           "ddnm_plus_sample", "ddpm_params_from_jax",
+           "ddpm_timestep_embedding", "get_schedule_jump",
+           "imagenet256_unet", "init_ddpm_", "init_random_",
+           "load_inpainter", "quantize_unet_", "svd_ops",
+           "timestep_embedding"]

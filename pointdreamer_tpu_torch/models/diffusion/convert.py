@@ -9,6 +9,12 @@ the attention's 1-d convs), GroupNorm `scale` is torch's `weight`.  A
 w8a8 tree (`quantize_unet_params`) carries its sites' {kernel_q int8
 [kh,kw,I,O] or [I,O], kernel_s, bias} to the QConv8 / QDense8 layout
 (`kernel_q` [O,kh,kw,I], dense [O,1,1,I]) of `UNetModel(quant=True)`.
+A `SuperResModel` tree ({'unet': ...}) maps as its UNet's, the input conv
+taking 6 channels.  `encoder_params_from_jax` is the inverse of
+`convert_encoder_state_dict`: an `EncoderUNetModel` tree to the
+reference classifier's layout (`out.0` GroupNorm, `out.2`
+AttentionPool2d with `positional_embedding` [C, HW + 1], or the
+adaptive head's 1x1 `out.3`).
 """
 from __future__ import annotations
 
@@ -75,15 +81,8 @@ def _layer(kind, p, prefix, sd):
         raise ValueError(kind)
 
 
-def params_from_jax(params: Dict, model_channels=256, num_res_blocks=2,
-                    channel_mult=(1, 1, 2, 2, 4, 4),
-                    attention_ds=(8, 16, 32)) -> Dict[str, np.ndarray]:
-    """flax UNet params (numpy leaves) -> guided-diffusion state dict (of
-    `UNetModel(quant=True)` for a w8a8 tree)."""
-    input_plan, middle_plan, output_plan = unet_plan(
-        model_channels, num_res_blocks, tuple(channel_mult),
-        tuple(attention_ds))
-    sd: Dict[str, np.ndarray] = {}
+def _encoder(params, plans, sd):
+    input_plan, middle_plan, _ = plans
     _dense(params["time_embed_0"], "time_embed.0", sd)
     _dense(params["time_embed_2"], "time_embed.2", sd)
     for i, layers in enumerate(input_plan):
@@ -92,12 +91,58 @@ def params_from_jax(params: Dict, model_channels=256, num_res_blocks=2,
                    sd)
     for j, (kind, _, _) in enumerate(middle_plan):
         _layer(kind, params[f"middle_{j}"], f"middle_block.{j}", sd)
+
+
+def _as_arrays(sd):
+    return {k: np.ascontiguousarray(
+        v, np.int8 if k.endswith(".kernel_q") else np.float32)
+        for k, v in sd.items()}
+
+
+def params_from_jax(params: Dict, model_channels=256, num_res_blocks=2,
+                    channel_mult=(1, 1, 2, 2, 4, 4),
+                    attention_ds=(8, 16, 32)) -> Dict[str, np.ndarray]:
+    """flax UNet params (numpy leaves) -> guided-diffusion state dict (of
+    `UNetModel(quant=True)` for a w8a8 tree; of `SuperResModel` for a
+    SuperRes tree)."""
+    if set(params) == {"unet"}:
+        params = params["unet"]
+    plans = unet_plan(model_channels, num_res_blocks, tuple(channel_mult),
+                      tuple(attention_ds))
+    sd: Dict[str, np.ndarray] = {}
+    _encoder(params, plans, sd)
+    output_plan = plans[2]
     for i, layers in enumerate(output_plan):
         for j, (kind, _, _) in enumerate(layers):
             _layer(kind, params[f"output_{i}_{j}"],
                    f"output_blocks.{i}.{j}", sd)
     _norm(params["out_norm"], "out.0", sd)
     _conv(params["out_conv"], "out.2", sd)
-    return {k: np.ascontiguousarray(
-        v, np.int8 if k.endswith(".kernel_q") else np.float32)
-        for k, v in sd.items()}
+    return _as_arrays(sd)
+
+
+def encoder_params_from_jax(params: Dict, model_channels=128,
+                            num_res_blocks=2,
+                            channel_mult=(1, 1, 2, 2, 4, 4),
+                            attention_ds=(8, 16, 32),
+                            pool="attention") -> Dict[str, np.ndarray]:
+    """flax EncoderUNetModel params -> the reference classifier's state
+    dict (`256x256_classifier.pt`'s layout; the defaults are
+    `convert_encoder_state_dict`'s)."""
+    sd: Dict[str, np.ndarray] = {}
+    _encoder(params, unet_plan(model_channels, num_res_blocks,
+                               tuple(channel_mult), tuple(attention_ds)), sd)
+    _norm(params["out_norm"], "out.0", sd)
+    if pool == "attention":
+        p = params["out_pool"]
+        sd["out.2.positional_embedding"] = np.asarray(
+            p["positional_embedding"]).T
+        _dense_as_conv1d(p["qkv_proj"], "out.2.qkv_proj", sd)
+        _dense_as_conv1d(p["c_proj"], "out.2.c_proj", sd)
+    elif pool == "adaptive":
+        sd["out.3.weight"] = np.asarray(
+            params["out_conv"]["kernel"]).T[:, :, None, None]
+        sd["out.3.bias"] = np.asarray(params["out_conv"]["bias"])
+    else:
+        raise ValueError(f"unsupported pool '{pool}'")
+    return _as_arrays(sd)

@@ -37,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...kernels.quant import act_scale, int8_conv, quantize, quantize_act
+from ...ops.image import resize_linear_hwc
 from .attention import attention_qkv
 
 
@@ -282,6 +283,23 @@ class Upsample(nn.Module):
         return _conv(self.conv, _nearest_up2(x), dtype, scales)
 
 
+def _make_layer(kind, cin, cout, flags, emb_ch, num_head_channels,
+                use_scale_shift_norm):
+    if kind == "conv":
+        return nn.Conv2d(cin, cout, 3, padding=1)
+    if kind == "res":
+        return ResBlock(cin, cout, emb_ch, up=flags.get("up", False),
+                        down=flags.get("down", False),
+                        use_scale_shift_norm=use_scale_shift_norm)
+    if kind == "attn":
+        return AttentionBlock(cin, num_head_channels)
+    if kind == "down":
+        return Downsample(cin)
+    if kind == "up":
+        return Upsample(cin)
+    raise ValueError(kind)
+
+
 class UNetModel(nn.Module):
     """Twin of the JAX `UNetModel` with the reference's module tree."""
 
@@ -294,6 +312,31 @@ class UNetModel(nn.Module):
                  resblock_updown: bool = True, in_channels: int = 3,
                  quant: bool = False):
         super().__init__()
+        ch, skips, output_plan = self._build_encoder(
+            model_channels, num_res_blocks, channel_mult, attention_ds,
+            num_head_channels, use_scale_shift_norm, resblock_updown,
+            in_channels)
+        self.output_blocks = nn.ModuleList()
+        for layers in output_plan:
+            mods = nn.ModuleList()
+            ch = ch + skips.pop()
+            for kind, oc, flags in layers:
+                mods.append(self._layer(kind, ch, oc, flags))
+                ch = oc
+            self.output_blocks.append(mods)
+        self.out = nn.Sequential(nn.GroupNorm(32, ch), nn.SiLU(),
+                                 nn.Conv2d(ch, out_channels, 3, padding=1))
+        self.quant = False
+        self.n_sites = 0
+        if quant:
+            _install_sites(self, lambda mod: _qsite_like(mod))
+
+    def _build_encoder(self, model_channels, num_res_blocks, channel_mult,
+                       attention_ds, num_head_channels, use_scale_shift_norm,
+                       resblock_updown, in_channels):
+        """The time embedding, input and middle blocks (shared with
+        `EncoderUNetModel`); returns (channels, skip channels, output
+        plan)."""
         self.model_channels = model_channels
         self.channel_mult = tuple(channel_mult)
         # the widths `convert.params_from_jax` needs to map a flax tree
@@ -309,64 +352,39 @@ class UNetModel(nn.Module):
             model_channels, num_res_blocks, tuple(channel_mult),
             tuple(attention_ds), resblock_updown)
         self._plans = (input_plan, middle_plan, output_plan)
+        self._layer_args = (emb_ch, num_head_channels, use_scale_shift_norm)
         ch = in_channels
-
-        def layer(kind, cin, cout, flags):
-            if kind == "conv":
-                return nn.Conv2d(cin, cout, 3, padding=1)
-            if kind == "res":
-                return ResBlock(cin, cout, emb_ch, up=flags.get("up", False),
-                                down=flags.get("down", False),
-                                use_scale_shift_norm=use_scale_shift_norm)
-            if kind == "attn":
-                return AttentionBlock(cin, num_head_channels)
-            if kind == "down":
-                return Downsample(cin)
-            if kind == "up":
-                return Upsample(cin)
-            raise ValueError(kind)
-
         skips = []
         self.input_blocks = nn.ModuleList()
         for layers in input_plan:
             mods = nn.ModuleList()
             for kind, oc, flags in layers:
-                mods.append(layer(kind, ch, oc, flags))
+                mods.append(self._layer(kind, ch, oc, flags))
                 ch = oc
             self.input_blocks.append(mods)
             skips.append(ch)
         self.middle_block = nn.ModuleList()
         for kind, oc, flags in middle_plan:
-            self.middle_block.append(layer(kind, ch, oc, flags))
+            self.middle_block.append(self._layer(kind, ch, oc, flags))
             ch = oc
-        self.output_blocks = nn.ModuleList()
-        for layers in output_plan:
-            mods = nn.ModuleList()
-            ch = ch + skips.pop()
-            for kind, oc, flags in layers:
-                mods.append(layer(kind, ch, oc, flags))
-                ch = oc
-            self.output_blocks.append(mods)
-        self.out = nn.Sequential(nn.GroupNorm(32, ch), nn.SiLU(),
-                                 nn.Conv2d(ch, out_channels, 3, padding=1))
-        self.quant = False
-        self.n_sites = 0
-        if quant:
-            _install_sites(self, lambda mod: _qsite_like(mod))
+        return ch, skips, output_plan
+
+    def _layer(self, kind, cin, cout, flags):
+        return _make_layer(kind, cin, cout, flags, *self._layer_args)
 
     def set_compute_dtype(self, dtype: torch.dtype,
                           keep_fp32_params: bool = False) -> "UNetModel":
-        """Compute the torso in `dtype`; norms and the final conv stay fp32.
-        The torso's conv/linear weights are stored in `dtype` (inference),
-        or, with `keep_fp32_params`, kept fp32 and cast at each use, as
-        flax keeps them (training: Adam's lr-sized updates vanish in bf16
-        master weights)."""
+        """Compute the torso in `dtype`; norms and the head (`out`) stay
+        fp32.  The torso's conv/linear weights are stored in `dtype`
+        (inference), or, with `keep_fp32_params`, kept fp32 and cast at
+        each use, as flax keeps them (training: Adam's lr-sized updates
+        vanish in bf16 master weights)."""
         self.dtype = dtype
         if keep_fp32_params:
             return self
         for name, mod in self.named_modules():
             if isinstance(mod, (nn.Conv2d, nn.Conv1d, nn.Linear)) \
-                    and name != "out.2":
+                    and not name.startswith("out."):
                 mod.to(dtype)
         return self
 
@@ -378,10 +396,9 @@ class UNetModel(nn.Module):
             return _conv(mod, h, dtype)
         return mod(h, dtype, scales)
 
-    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
-                scales: ActScales = DYNAMIC) -> torch.Tensor:
-        """x [N, H, W, 3] float, timesteps [N] -> [N, H, W, out] fp32;
-        `scales` for the w8a8 sites (a table of one row per site)."""
+    def _encode(self, x: torch.Tensor, timesteps: torch.Tensor,
+                scales: ActScales = DYNAMIC, keep_skips: bool = True):
+        """The input and middle blocks: (h NCHW, the skips, emb)."""
         if scales.table is not None and scales.table.shape[0] != self.n_sites:
             raise ValueError(f"scale table {tuple(scales.table.shape)} for "
                              f"{self.n_sites} sites")
@@ -394,9 +411,18 @@ class UNetModel(nn.Module):
         for mods in self.input_blocks:
             for mod in mods:
                 h = self._run(mod, h, emb, dt, scales)
-            hs.append(h)
+            if keep_skips:
+                hs.append(h)
         for mod in self.middle_block:
             h = self._run(mod, h, emb, dt, scales)
+        return h, hs, emb
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                scales: ActScales = DYNAMIC) -> torch.Tensor:
+        """x [N, H, W, C_in] float, timesteps [N] -> [N, H, W, out] fp32;
+        `scales` for the w8a8 sites (a table of one row per site)."""
+        dt = self.dtype
+        h, hs, emb = self._encode(x, timesteps, scales)
         for mods in self.output_blocks:
             h = torch.cat([h, hs.pop()], dim=1)
             for mod in mods:
@@ -410,6 +436,110 @@ def imagenet256_unet(quant: bool = False) -> UNetModel:
     """The demo's exact model (imagenet_256.yml:14-33), 552.8M params;
     `quant` for its w8a8 torso."""
     return UNetModel(quant=quant)
+
+
+class SuperResModel(UNetModel):
+    """Super-resolution UNet (reference unet.py:667-683; twin of the JAX
+    `SuperResModel`): the UNet over x concatenated with `low_res`
+    bilinearly upsampled to x's size (`ops.image.resize_linear`, as
+    `jax.image.resize`), so its input conv takes 2 x `in_channels`.  The
+    state-dict names are the reference's (a `UNetModel`'s)."""
+
+    def __init__(self, in_channels: int = 3, **kwargs):
+        super().__init__(in_channels=2 * in_channels, **kwargs)
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                low_res: torch.Tensor,
+                scales: ActScales = DYNAMIC) -> torch.Tensor:
+        """x [N, H, W, C], low_res [N, h, w, C] -> [N, H, W, out] fp32."""
+        up = resize_linear_hwc(low_res.float(), x.shape[1:3])
+        return super().forward(torch.cat([x, up.to(x.dtype)], dim=-1),
+                               timesteps, scales)
+
+
+class AttentionPool2d(nn.Module):
+    """CLIP-style attention pooling (reference unet.py:22-51): the spatial
+    mean prepended as a query token (T = HW + 1), a learned positional
+    embedding added, one QKV attention in the NEW order (q, k, v split
+    first, then heads), the pooled token out.  fp32 `torch.matmul`s, as
+    the JAX package's einsums outside Pallas; the reference's parameter
+    names and layouts (`positional_embedding` [C, HW + 1], `qkv_proj` and
+    `c_proj` 1-d convs)."""
+
+    def __init__(self, spacial_dim: int, embed_dim: int,
+                 num_head_channels: int, output_dim: int):
+        super().__init__()
+        self.positional_embedding = nn.Parameter(
+            torch.randn(embed_dim, spacial_dim ** 2 + 1) / embed_dim ** 0.5)
+        self.qkv_proj = nn.Conv1d(embed_dim, 3 * embed_dim, 1)
+        self.c_proj = nn.Conv1d(embed_dim, output_dim, 1)
+        self.num_head_channels = num_head_channels
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, C, H, W] fp32 -> [B, output_dim]."""
+        b, c = x.shape[:2]
+        t = x.reshape(b, c, -1).transpose(1, 2)                 # [b, hw, c]
+        t = torch.cat([t.mean(dim=1, keepdim=True), t], dim=1)
+        t = t + self.positional_embedding.float().T[None]
+        qkv = F.linear(t, self.qkv_proj.weight[:, :, 0].float(),
+                       self.qkv_proj.bias.float())
+        hd = self.num_head_channels
+        q, k, v = (a.reshape(b, -1, c // hd, hd) for a in qkv.chunk(3, -1))
+        scale = 1.0 / math.sqrt(math.sqrt(hd))
+        logits = torch.einsum("bthd,bshd->bhts", q * scale, k * scale)
+        weights = torch.softmax(logits, dim=-1)
+        a = torch.einsum("bhts,bshd->bthd", weights, v).reshape(b, -1, c)
+        return F.linear(a[:, 0], self.c_proj.weight[:, :, 0].float(),
+                        self.c_proj.bias.float())
+
+
+class EncoderUNetModel(UNetModel):
+    """The half-UNet classifier (reference unet.py:684-850; twin of the
+    JAX `EncoderUNetModel`): the UNet's input and middle blocks, then a
+    pooled head on GroupNorm + SiLU, `pool` 'adaptive' (global mean, then
+    a zero-initialised 1x1 conv, `out.3`) or 'attention'
+    (`AttentionPool2d`, `out.2`, over the (image_size / 2^(levels-1))^2
+    pixels the torso leaves).  The attention blocks run on K2."""
+
+    def __init__(self, model_channels: int = 256, out_channels: int = 6,
+                 num_res_blocks: int = 2,
+                 channel_mult: Sequence[int] = (1, 1, 2, 2, 4, 4),
+                 attention_ds: Sequence[int] = (8, 16, 32),
+                 num_head_channels: int = 64,
+                 use_scale_shift_norm: bool = True,
+                 resblock_updown: bool = True, in_channels: int = 3,
+                 pool: str = "adaptive", image_size: int = 256):
+        nn.Module.__init__(self)
+        ch, _, _ = self._build_encoder(
+            model_channels, num_res_blocks, channel_mult, attention_ds,
+            num_head_channels, use_scale_shift_norm, resblock_updown,
+            in_channels)
+        self.pool = pool
+        if pool == "adaptive":
+            self.out = nn.Sequential(nn.GroupNorm(32, ch), nn.SiLU(),
+                                     nn.AdaptiveAvgPool2d((1, 1)),
+                                     nn.Conv2d(ch, out_channels, 1),
+                                     nn.Flatten())
+        elif pool == "attention":
+            side = image_size // 2 ** (len(channel_mult) - 1)
+            self.out = nn.Sequential(
+                nn.GroupNorm(32, ch), nn.SiLU(),
+                AttentionPool2d(side, ch, num_head_channels, out_channels))
+        else:
+            raise ValueError(f"unsupported pool '{pool}'")
+        self.quant = False
+        self.n_sites = 0
+
+    def forward(self, x: torch.Tensor,
+                timesteps: torch.Tensor) -> torch.Tensor:
+        """x [N, H, W, C] float, timesteps [N] -> logits [N, out] fp32."""
+        h, _, _ = self._encode(x, timesteps, keep_skips=False)
+        h = F.silu(_group_norm(self.out[0], h))
+        if self.pool == "adaptive":
+            conv = self.out[3]
+            return F.linear(h.mean(dim=(2, 3)),
+                            conv.weight[:, :, 0, 0].float(), conv.bias.float())
+        return self.out[2](h)
 
 
 # ---------------------------------------------------------------------------
@@ -542,7 +672,8 @@ def init_random_(model: UNetModel, seed: int = 0) -> UNetModel:
     (flax's defaults, as the JAX package's random init: lecun-normal conv
     and dense kernels, zero biases, unit norms, and zero for the layers
     the reference zero-initializes: ResBlock out convs, attention
-    proj_out and the final conv)."""
+    proj_out, the final conv and the adaptive head's 1x1; an attention
+    pool's positional embedding normal with std C^-1/2)."""
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -550,9 +681,14 @@ def init_random_(model: UNetModel, seed: int = 0) -> UNetModel:
         if isinstance(mod, nn.GroupNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+        elif isinstance(mod, AttentionPool2d):
+            c = mod.positional_embedding.shape[0]
+            mod.positional_embedding.copy_(torch.randn(
+                mod.positional_embedding.shape, generator=gen, device=dev)
+                / math.sqrt(c))
         elif isinstance(mod, (nn.Conv2d, nn.Conv1d, nn.Linear)):
             mod.bias.zero_()
-            if name.endswith(_ZERO_INIT) or name == "out.2":
+            if name.endswith(_ZERO_INIT) or name in ("out.2", "out.3"):
                 mod.weight.zero_()
                 continue
             fan_in = mod.weight[0].numel()

@@ -16,9 +16,9 @@ the demo's `--concurrency`.
   |q|^2 - 2 q.r + |r|^2, each within 1.3e-7 of the exact squared
   distance on these samples (measured), which the root turns into up to
   ~7e-6 at the 0.01 distances here.
-- geometry_table: SPR and hoppe on one 2,000-point cloud at 32^3, scored
-  on 5,000 surface samples (the CLI's 100,000 cut for time); NKSR
-  refused with NotImplementedError, POCO without a checkpoint with
+- geometry_table: SPR, hoppe and NKSR (the JAX CLI's default backends) on
+  one 2,000-point cloud at 32^3, scored on 5,000 surface samples (the
+  CLI's 100,000 cut for time); POCO without a checkpoint refused with
   ValueError.
 - demo --concurrency 2 on a directory of two clouds: both shapes
   exported, as with --concurrency 1.
@@ -195,12 +195,9 @@ def test_geometry_table(tmp_path, monkeypatch):
     geometry_table.main(["--data", str(d), "--out", str(out), "--grid_res",
                          "32", "--target_faces", "500", "--device", "cpu"])
     res = json.load(open(out))
-    assert sorted(res["ball"]) == ["SPR", "hoppe"]
+    assert sorted(res["ball"]) == ["NKSR", "SPR", "hoppe"]
     for m in res["ball"].values():
         assert m["chamfer_l1"] < 0.02 and 0 < m["n_faces"] <= 500
-    with pytest.raises(NotImplementedError, match="item 7"):
-        geometry_table.main(["--data", str(d), "--backends", "NKSR",
-                             "--device", "cpu"])
     with pytest.raises(ValueError, match="poco_checkpoint"):
         geometry_table.main(["--data", str(d), "--backends", "POCO",
                              "--device", "cpu"])

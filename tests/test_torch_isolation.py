@@ -57,7 +57,12 @@ def test_port_imports_nothing_forbidden():
                 "cli/geometry_table.py", "kernels/quant.py",
                 "cli/w8a8_fidelity.py", "models/texture_field/__init__.py",
                 "models/texture_field/triplane.py",
-                "pipeline/face_assign.py"):
+                "pipeline/face_assign.py", "models/diffusion/svd_ops.py",
+                "models/diffusion/ddpm_unet.py",
+                "models/diffusion/datasets.py",
+                "models/diffusion/ckpt_util.py", "ops/resample.py",
+                "cli/ddnm_restore.py", "baselines/nksr.py",
+                "cli/nksr_baseline.py"):
         assert os.path.join("pointdreamer_tpu_torch", mod) in scanned
     for path in _port_sources():
         with open(path) as fh:
@@ -98,19 +103,26 @@ def test_create_without_a_device_needs_cuda():
                                   "render_meshes", "run_evaluation",
                                   "eval_meshes", "eval_point2surf",
                                   "geometry_table", "w8a8_fidelity",
-                                  "triplane_field", "get_textured_mesh"])
+                                  "triplane_field", "get_textured_mesh",
+                                  "ddnm_restore", "fit_kernel_field",
+                                  "recon_one_shape_NKSR", "nksr_baseline",
+                                  "build_unet", "build_superres",
+                                  "build_encoder", "build_ddpm_unet"])
 def test_helpers_without_a_device_need_cuda(call, tmp_path):
     # the helpers an entry point calls default to device='cuda' too
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
+    from pointdreamer_tpu_torch.baselines import nksr
     from pointdreamer_tpu_torch.baselines.spr import recon_one_shape_SPR
     from pointdreamer_tpu_torch.camera import make_camera_rig
-    from pointdreamer_tpu_torch.cli import (eval_meshes, eval_point2surf,
-                                            generate, geometry_table,
+    from pointdreamer_tpu_torch.cli import (ddnm_restore, eval_meshes,
+                                            eval_point2surf, generate,
+                                            geometry_table, nksr_baseline,
                                             render_meshes, run_evaluation,
                                             train_ddnm_synthetic,
                                             train_poco_synthetic,
                                             w8a8_fidelity)
+    from pointdreamer_tpu_torch.models import diffusion
     from pointdreamer_tpu_torch.eval import render, run_evaluation as reval
     from pointdreamer_tpu_torch.eval.selfparity import run_roundtrip
     from pointdreamer_tpu_torch.models import perception, texture_field
@@ -161,7 +173,22 @@ def test_helpers_without_a_device_need_cuda(call, tmp_path):
                ["--pc_file", "x.ply", "--calib_pc", "y.ply"]),
            "triplane_field": lambda: texture_field.TriplaneColorField(),
            "get_textured_mesh": lambda: texture_field.get_textured_mesh(
-               pts[:6], tri, pts, pts + 0.5, atlas_res=32)}
+               pts[:6], tri, pts, pts + 0.5, atlas_res=32),
+           "ddnm_restore": lambda: ddnm_restore.main(
+               ["--image", "x.png", "--out", str(tmp_path / "o.png")]),
+           "fit_kernel_field": lambda: nksr.fit_kernel_field(pts, pts),
+           "recon_one_shape_NKSR": lambda: nksr.recon_one_shape_NKSR(pts),
+           "nksr_baseline": lambda: nksr_baseline.main(
+               ["--pc_file", "x.ply", "--output", str(tmp_path)]),
+           "build_unet": lambda: diffusion.build_unet(),
+           "build_superres": lambda: diffusion.build_unet(
+               cls=diffusion.SuperResModel, model_kwargs=dict(
+                   model_channels=32, channel_mult=(1,), attention_ds=())),
+           "build_encoder": lambda: diffusion.build_unet(
+               cls=diffusion.EncoderUNetModel,
+               model_kwargs=dict(model_channels=128, out_channels=1000,
+                                 pool="attention")),
+           "build_ddpm_unet": lambda: diffusion.build_ddpm_unet()}
     with pytest.raises((RuntimeError, AssertionError),
                        match="CUDA|Torch not compiled"):
         run[call]()
