@@ -199,6 +199,25 @@ Phases (each prints its own lines; any failure exits non-zero):
                 1e-3; distance to the cube beside phase 5's), stage
                 seconds, the QEM to 10,000 faces; geometry_table
                 --backends NKSR on the card.
+ 12. multi-   : (a) at world size 1 through NCCL (one process, a
+     device     tcp://127.0.0.1 store; the card cannot hold two ranks, so
+     & host     dp > 1 and tp > 1 run only on the CPU, in the tests):
+     tools      DDNMInpainter on the seeded random 552.8M bf16 UNet over
+                phase 4's 8 sparse views (256^2, the UNet's input), 100
+                steps, without and with make_mesh(1): bit-equal, K2 = 1600 and one all_gather on the
+                mesh run; POCO's fit at phase 7's shape (hidden 64, batch 4
+                x 1,024 points, 512 queries), 2 x 10 captured steps without
+                and with the mesh: bit-equal, one broadcast and 22
+                all_reduces (a pair that differs is rerun without the mesh:
+                a mesh-less run that reproduces itself fails the pair);
+                seconds of each.  (b) the host modules on the machine
+                without PIL or matplotlib: the JPEG fixtures of
+                tests/data/jpeg against their committed PIL decodes (bit
+                for bit), 30,000 points sampled from phase 4's OBJ on the
+                card against the CPU (coordinates equal, colours within
+                1e-5), phase 4's mesh as GLB read back (triangles and
+                texture), a sheet of phase 4's views and the cloud's three
+                views.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2698,6 +2717,220 @@ def nksr_phase(dev, ply_alone: str, work: str, spr_dist: float) -> None:
         fail(f"geometry_table NKSR row {row}")
 
 
+def _state_equal(a, b) -> bool:
+    return all(torch_equal(a[k], b[k]) for k in a)
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+
+    return x.shape == y.shape and bool(torch.equal(x, y))
+
+
+def _max_diff(a, b) -> float:
+    return max(float((a[k].double() - b[k].double()).abs().max())
+               for k in a) if a else 0.0
+
+
+def multidevice_phase(dev, work: str, views_dir: str, steps: int = 100,
+                      fit_steps: int = 10) -> None:
+    """Phase 12 (a): the multi-device paths at world size 1 through NCCL
+    (one process on the one card, a tcp://127.0.0.1 store): the 552.8M
+    bf16 UNet's DDNMInpainter with and without make_mesh(1) on phase 4's
+    8 sparse views (the config's res, 256^2), 100 steps; POCO's fit at phase 7's shape
+    (hidden 64, batch 4 x 1,024 points, 512 queries) 2 x `fit_steps`
+    steps with and without the mesh.  Each pair must be bit-equal; when a
+    pair is not, the mesh-less run is repeated: a mesh-less path that
+    reproduces itself makes the difference the mesh's (a failure), one
+    that does not bounds it by its own spread (printed).  Prints the NCCL
+    collectives and K2's launches of the mesh run."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pointdreamer_tpu_torch import io as pio
+    from pointdreamer_tpu_torch import kernels
+    from pointdreamer_tpu_torch.models.diffusion import (DDNMInpainter,
+                                                         build_unet)
+    from pointdreamer_tpu_torch.models.occupancy import train as otrain
+    from pointdreamer_tpu_torch.models.occupancy.convert import init_params
+    from pointdreamer_tpu_torch.models.occupancy.network import \
+        network_from_tree
+    from pointdreamer_tpu_torch.models.occupancy.synthetic import \
+        batch_iterator
+    from pointdreamer_tpu_torch.parallel import mesh as pmesh
+
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = s_.getsockname()[1]
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = pmesh.make_mesh(1)
+        print(f"[multidevice] backend {dist.get_backend()}, world 1, mesh "
+              f"{mesh.shape}")
+        imgs = torch.as_tensor(np.stack([
+            pio.load_rgb(os.path.join(views_dir, f"{i}_sparse.png"))
+            for i in range(8)]), device=dev)
+        masks = (imgs.amax(-1) > 0).float()
+        t0 = time.perf_counter()
+        unet = build_unet(dev, torch.bfloat16)
+        torch.cuda.synchronize()
+        print(f"[multidevice] 552.8M bf16 UNet built in "
+              f"{time.perf_counter() - t0:.2f} s; views "
+              f"{tuple(imgs.shape)}, known pixels "
+              f"{float(masks.mean()):.4f}")
+
+        def inpaint(m):
+            kernels.reset_launches()
+            pmesh.reset_collectives()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = DDNMInpainter(unet, steps, mesh=m).inpaint(imgs, masks)
+            torch.cuda.synchronize()
+            return (out, time.perf_counter() - t0, dict(kernels.LAUNCHES),
+                    dict(pmesh.COLLECTIVES))
+
+        base, t_base, l_base, _ = inpaint(None)
+        got, t_mesh, l_mesh, c_mesh = inpaint(mesh)
+        same = torch_equal(got, base)
+        print(f"[multidevice] DDNMInpainter {tuple(imgs.shape[:3])}, "
+              f"{steps} steps: "
+              f"{t_base:.3f} s without a mesh, {t_mesh:.3f} s with "
+              f"make_mesh(1); K2 launches {l_base['attention_qkv']} / "
+              f"{l_mesh['attention_qkv']}; NCCL collectives of the mesh run "
+              f"{c_mesh}; bit-equal {same}")
+        if l_mesh["attention_qkv"] != 16 * steps:
+            fail(f"K2 launched {l_mesh['attention_qkv']} times on the world-1"
+                 f" dp path, not {16 * steps}")
+        if c_mesh.get("all_gather.dp") != 1:
+            fail(f"the world-1 dp path launched {c_mesh}, not one all_gather")
+        if not same:
+            again = inpaint(None)[0]
+            spread = float((again.float() - base.float()).abs().max())
+            diff = float((got.float() - base.float()).abs().max())
+            print(f"[multidevice] DDNM with the mesh differs by {diff}; the "
+                  f"mesh-less run against itself by {spread}")
+            if spread == 0.0 or diff > 4 * spread:
+                fail("DDNMInpainter(mesh=make_mesh(1)) is not the mesh-less "
+                     "run")
+        del unet, base, got
+        torch.cuda.empty_cache()
+
+        tree = init_params(seed=0, hidden=64)
+
+        def fit(m):
+            net = network_from_tree(tree, device=dev)
+            pmesh.reset_collectives()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, hist = otrain.fit(net, batch_iterator(5, 4, 1024, 512, 0.005),
+                                 epochs=2, steps_per_epoch=fit_steps,
+                                 lr=1e-3, mesh=m)
+            torch.cuda.synchronize()
+            return ({k: v.detach().clone() for k, v in
+                     net.state_dict().items()}, hist,
+                    time.perf_counter() - t0, dict(pmesh.COLLECTIVES))
+
+        a, h_a, t_a, _ = fit(None)
+        b, h_b, t_b, c_b = fit(mesh)
+        same = _state_equal(a, b) and h_a == h_b
+        print(f"[multidevice] POCO fit 2 x {fit_steps} steps (captured): "
+              f"{t_a:.3f} s without a mesh, {t_b:.3f} s with make_mesh(1) "
+              f"(the gradients' all_reduce between two graphs); losses "
+              f"{[round(h['loss'], 6) for h in h_b]}; NCCL collectives "
+              f"{c_b}; bit-equal {same}")
+        if c_b.get("all_reduce.dp") != 2 * fit_steps + 2 \
+                or c_b.get("broadcast.dp") != 1:
+            fail(f"fit(mesh=make_mesh(1)) launched {c_b}")
+        if not same:
+            a2 = fit(None)[0]
+            spread, diff = _max_diff(a, a2), _max_diff(a, b)
+            print(f"[multidevice] fit with the mesh differs by {diff}; the "
+                  f"mesh-less fit against itself by {spread}")
+            if spread == 0.0 or diff > 4 * spread:
+                fail("fit(mesh=make_mesh(1)) is not the mesh-less fit")
+    finally:
+        dist.destroy_process_group()
+
+
+def host_tools_phase(dev, work: str, views_dir: str) -> None:
+    """Phase 12 (b): the committed JPEG fixtures against their committed
+    PIL decodes (bit for bit), a cloud sampled from phase 4's exported OBJ
+    on the card against the CPU (1e-5), phase 4's mesh written as GLB and
+    read back, a sheet of phase 4's views and the cloud's three views."""
+    import numpy as np
+
+    from pointdreamer_tpu_torch import io as pio
+    from pointdreamer_tpu_torch import vis
+    from pointdreamer_tpu_torch.data import sample_from_obj
+    from pointdreamer_tpu_torch.mesh import Mesh, read_glb
+
+    t0 = time.perf_counter()
+    fx = os.path.join(REPO, "tests", "data", "jpeg")
+    names = sorted(f[:-4] for f in os.listdir(fx) if f.endswith(".jpg"))
+    for n in names:
+        got = pio.load_rgb_uint8(os.path.join(fx, n + ".jpg"))
+        want = pio.load_png(os.path.join(fx, n + ".png"))
+        if not (got.shape == want.shape and (got == want).all()):
+            fail(f"JPEG fixture {n}: the decode is not PIL's")
+    t_jpeg = time.perf_counter() - t0
+    print(f"[host tools] {len(names)} JPEG fixtures {names} decode bit-equal "
+          f"to their PIL decodes in {t_jpeg:.3f} s")
+    if len(names) < 5:
+        fail(f"JPEG fixtures {names}")
+
+    obj = os.path.join(os.path.dirname(views_dir), "models",
+                       "model_normalized.obj")
+    t1 = time.perf_counter()
+    card = sample_from_obj(obj, 30000, 0, device=dev)
+    t_card = time.perf_counter() - t1
+    cpu = sample_from_obj(obj, 30000, 0, device="cpu")
+    for k in ("coords", "normals", "uvs"):
+        if not (card[k] == cpu[k]).all():
+            fail(f"sampled {k}: card and CPU differ")
+    d_col = float(np.abs(card["colors"] - cpu["colors"]).max())
+    print(f"[host tools] 30000 points sampled from {obj} on the card in "
+          f"{t_card:.3f} s: colours within {d_col:.3g} of the CPU's")
+    if not d_col <= 1e-5:
+        fail(f"sampled colours differ by {d_col}")
+
+    out = os.path.join(work, "phase12")
+    m = Mesh.load(obj)
+    glb = os.path.join(out, "mesh.glb")
+    m.write(glb)
+    gltf, binary = read_glb(glb)
+    back = Mesh.load(glb)
+    same_tris = bool((back.vertices[back.faces]
+                      == m.vertices[m.faces].astype(np.float32)).all())
+    tex8 = (np.clip(m.texture, 0, 1) * 255).astype(np.uint8)
+    same_tex = bool((np.rint(back.texture * 255).astype(np.uint8)
+                     == tex8).all())
+    print(f"[host tools] GLB {os.path.getsize(glb)} bytes: "
+          f"{len(gltf['accessors'])} accessors, "
+          f"{len(gltf['bufferViews'])} views, BIN {len(binary)} bytes, "
+          f"{len(back.faces)} faces; triangles {same_tris}, texture "
+          f"{same_tex}")
+    if not (same_tris and same_tex and len(back.faces) == len(m.faces)):
+        fail("the GLB does not read back as the mesh")
+
+    views = [pio.load_rgb(os.path.join(views_dir, f"{i}_inpainted.png"))
+             for i in range(8)]
+    sheet = vis.save_image_sheet(views, os.path.join(out, "views.png"),
+                                 titles=[f"view {i}" for i in range(8)])
+    pc = vis.save_pointcloud_views(card["coords"], card["colors"],
+                                   os.path.join(out, "cloud.png"))
+    print(f"[host tools] sheet {sheet.shape}, cloud views {pc.shape}; phase "
+          f"12 (b) {time.perf_counter() - t0:.2f} s")
+    for f in ("views.png", "cloud.png"):
+        if pio.load_png(os.path.join(out, f)).shape[:2] \
+                != (sheet if f == "views.png" else pc).shape[:2]:
+            fail(f"{f} was not written")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3114,6 +3347,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     nksr_phase(dev, ply_alone, work, spr_dist)
     print(f"[restore & nksr] phase 11 {time.perf_counter() - t11:.2f} s")
+
+    # ---- 12. multi-device paths at world size 1, the host tools --------
+    t12 = time.perf_counter()
+    multidevice_phase(dev, work, bf16_views)
+    torch.cuda.empty_cache()
+    host_tools_phase(dev, work, bf16_views)
+    print(f"[multidevice & host tools] phase 12 "
+          f"{time.perf_counter() - t12:.2f} s")
 
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

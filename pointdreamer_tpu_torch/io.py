@@ -4,9 +4,9 @@ images.
 Twin of pointdreamer_tpu's core/io.py without PIL or cv2: PNGs are written
 and read with zlib + struct (8-bit gray, gray+alpha, RGB and RGBA; all
 five row filters on read, filter 0 on write); binary and ASCII PPM/PGM
-(maxval 255) and uncompressed 24/32-bit BMP are read too.  JPEG and WebP
-need a decoder the port does not have yet (ROADMAP Queue A, "a numpy
-baseline-JPEG decoder"): reading one raises.  Image writers take numpy
+(maxval 255), uncompressed 24/32-bit BMP and baseline JPEG (`jpeg.py`)
+are read too.  WebP needs a decoder the port does not have (ROADMAP
+Queue A item 9): reading one raises.  Image writers take numpy
 arrays or torch tensors; a device tensor is quantized to uint8 on the
 device before the one host transfer.
 """
@@ -20,6 +20,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from .jpeg import decode_jpeg
 
 # --------------------------------------------------------------------------
 # PLY
@@ -433,20 +435,22 @@ def decode_bmp(data: bytes) -> np.ndarray:
 
 
 _DECODERS = {".png": decode_png, ".ppm": decode_pnm, ".pgm": decode_pnm,
-             ".pnm": decode_pnm, ".bmp": decode_bmp}
-UNSUPPORTED_IMAGES = (".jpg", ".jpeg", ".webp")
+             ".pnm": decode_pnm, ".bmp": decode_bmp, ".jpg": decode_jpeg,
+             ".jpeg": decode_jpeg}
+UNSUPPORTED_IMAGES = (".webp",)
 
 
 def load_image(path: str) -> np.ndarray:
-    """A PNG, PPM/PGM or uncompressed BMP -> uint8 [H,W,C] as stored.
-    JPEG and WebP raise NotImplementedError: the port has no decoder for
-    them yet (ROADMAP Queue A, "a numpy baseline-JPEG decoder")."""
+    """A PNG, PPM/PGM, uncompressed BMP or baseline JPEG (`jpeg.py`,
+    libjpeg-turbo's decode bit for bit) -> uint8 [H,W,C] as stored.  WebP
+    raises NotImplementedError: the port has no VP8 decoder (ROADMAP Queue
+    A item 9)."""
     ext = os.path.splitext(path)[1].lower()
     if ext in UNSUPPORTED_IMAGES:
         raise NotImplementedError(
             f"{path}: {ext} images need a decoder the port does not have "
-            "yet (ROADMAP Queue A: a numpy baseline-JPEG decoder); convert "
-            "them to PNG, PPM or BMP")
+            "(ROADMAP Queue A item 9: a VP8 decoder for WebP); convert "
+            "them to PNG, JPEG, PPM or BMP")
     if ext not in _DECODERS:
         raise ValueError(f"{path}: unknown image type {ext!r}")
     with open(path, "rb") as f:

@@ -54,12 +54,13 @@ def load_inpainter(checkpoint_path=None, logger=None, device="cuda",
                    t_sampling: int = 100, eta: float = 0.85,
                    seed: int = 1234, model_kwargs=None,
                    dtype=torch.bfloat16, quant_int8: bool = False,
-                   quant_static: bool = True) -> DDNMInpainter:
+                   quant_static: bool = True, mesh=None) -> DDNMInpainter:
     """Build the DDNM inpainter (reference prepare(), demo.py:322-328).
     Without a checkpoint the UNet is random: the full compute path runs
     but textures are noise.  `quant_int8`: the w8a8 UNet (K7 + K8), with
     static per-step activation scales calibrated on the first call
-    (`quant_static`) or dynamic ones."""
+    (`quant_static`) or dynamic ones.  `mesh` (parallel.mesh.make_mesh):
+    the views over its dp, the UNet over its tp."""
     if checkpoint_path and logger:
         logger.info(f"Loading diffusion checkpoint {checkpoint_path}")
     if not checkpoint_path:
@@ -70,7 +71,7 @@ def load_inpainter(checkpoint_path=None, logger=None, device="cuda",
     model = build_unet(device, dtype, model_kwargs=model_kwargs,
                        checkpoint_path=checkpoint_path, quant=quant_int8)
     return DDNMInpainter(model, t_sampling, eta, seed,
-                         static_calib=quant_int8 and quant_static)
+                         static_calib=quant_int8 and quant_static, mesh=mesh)
 
 
 __all__ = ["AttentionPool2d", "DDNMInpainter", "DDPMPlan", "DDPMUNet",

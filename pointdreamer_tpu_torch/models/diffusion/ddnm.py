@@ -14,6 +14,15 @@ collects each site's per-step max |activation| into a device table
 the sampler passes each forward its step's `ActScales` (the JAX sampler's
 per-step `act_scales` scan input and `calib` scan output), so calls on
 other threads that share the model do not meet.
+
+With a `mesh` (parallel/mesh.py; JAX's sharded views, here SPMD over
+torch.distributed) every rank is given the whole batch, runs its V / dp
+views and all-gathers the result; it draws the whole batch's noise from
+the shared generator and keeps its rows, so the run is the one-process
+run draw for draw, and a w8a8 model's dynamic or collected amax is the
+max over dp (`ActScales.group`), as GSPMD's global reduction: so the
+static calibration's per-step table is the whole batch's on every
+rank.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...parallel.mesh import all_gather_rows, rows
 from .unet import DYNAMIC, ActScales
 
 
@@ -62,18 +72,26 @@ def ddnm_inpaint_batch(model, masked_imgs: torch.Tensor,
                        num_timesteps: int = 1000,
                        noise: Optional[torch.Tensor] = None,
                        act_scales: Optional[torch.Tensor] = None,
-                       collect_calib: bool = False):
+                       collect_calib: bool = False, mesh=None):
     """masked_imgs [B,H,W,3] in [0,1] (zeros where unknown), masks [B,H,W]
     or [B,H,W,1] (1 = known) -> inpainted [B,H,W,3] in [0,1].  `noise`
     [1+t_sampling,B,H,W,3], when given, replaces every random draw (x_T,
     then one z per step).  For a w8a8 model: `act_scales` [n_sites,
     n_steps] static per-step amax (None: dynamic); `collect_calib` returns
     (images, calib), calib [n_sites, n_steps] the per-step max |activation|
-    of each site (n_sites = 0 for a model without w8a8 sites)."""
+    of each site (n_sites = 0 for a model without w8a8 sites).  `mesh`:
+    this rank's views of the whole batch, the result gathered over dp."""
     if masks.dim() == 3:
         masks = masks[..., None]
     B, H, W, _ = masked_imgs.shape
     dev = masked_imgs.device
+    mine, group = slice(None), None
+    if mesh is not None:
+        mine = rows(B, mesh.dp)
+        masked_imgs, masks = masked_imgs[mine], masks[mine]
+        if noise is not None:
+            noise = noise[:, mine]
+        group = mesh.dp if mesh.dp.size > 1 else None
     y = (masked_imgs * 2.0 - 1.0) * masks
 
     skip = num_timesteps // t_sampling
@@ -87,7 +105,7 @@ def ddnm_inpaint_batch(model, masked_imgs: torch.Tensor,
 
     def draw():
         return torch.randn((B, H, W, 3), generator=generator, device=dev,
-                           dtype=torch.float32)
+                           dtype=torch.float32)[mine]
 
     n_sites = model.n_sites
     calib = (torch.zeros((n_sites, len(pairs)), dtype=torch.float32,
@@ -97,13 +115,16 @@ def ddnm_inpaint_batch(model, masked_imgs: torch.Tensor,
         if n_sites and act_scales is not None:
             scales = ActScales("static", act_scales, s)
         elif n_sites and collect_calib:
-            scales = ActScales("collect", calib, s)
+            scales = ActScales("collect", calib, s, group)
         else:
-            scales = DYNAMIC
+            scales = ActScales(group=group) if group is not None else DYNAMIC
         z = noise[1 + s] if noise is not None else draw()
         at = torch.tensor(at_arr[s], device=dev)
         at_next = torch.tensor(at_next_arr[s], device=dev)
-        t = torch.full((B,), float(i_steps[s]), device=dev)
+        # every view is at the same step: one timestep row, broadcast
+        # over the batch (its embedding then does not depend on the batch
+        # size, so the views split over ranks give the one-process bits)
+        t = torch.full((1,), float(i_steps[s]), device=dev)
         et = model(x, t, scales)[..., :3].float()
         x0_t = (x - et * torch.sqrt(1.0 - at)) / torch.sqrt(at)
         sigma_t = torch.sqrt(1.0 - at_next ** 2)
@@ -113,6 +134,8 @@ def ddnm_inpaint_batch(model, masked_imgs: torch.Tensor,
             torch.tensor(1.0 - eta ** 2, device=dev))
         x = torch.sqrt(at_next) * x0_hat + sigma_t * (c1 * z + c2 * et)
     out = ((x + 1.0) / 2.0).clamp(0.0, 1.0)
+    if mesh is not None:
+        out = all_gather_rows(out, mesh.dp)
     return (out, calib) if collect_calib else out
 
 
@@ -127,11 +150,21 @@ class DDNMInpainter:
     call, the first included, which returns the static-scale result on the
     same draws (twin of the JAX package's DDNMInpainter).  A model without
     w8a8 sites turns it off.  Threads may share an inpainter: one of them
-    calibrates, the others wait for its scales."""
+    calibrates, the others wait for its scales.
+
+    `mesh` (parallel.mesh.make_mesh; JAX's `mesh=`): the views split over
+    dp, and the UNet's blocks over tp (`shard_unet_tp_`, in place: the
+    model becomes this rank's shard); every rank calls `inpaint` with the
+    whole batch and gets the whole result."""
 
     def __init__(self, model, t_sampling: int = 100, eta: float = 0.85,
                  seed: int = 1234, static_calib: bool = False,
-                 calib_margin: float = 1.3):
+                 calib_margin: float = 1.3, mesh=None):
+        if mesh is not None:
+            from .unet import shard_unet_tp_
+
+            shard_unet_tp_(model, mesh)
+        self.mesh = mesh
         self.model = model
         self.t_sampling = t_sampling
         self.eta = eta
@@ -151,13 +184,22 @@ class DDNMInpainter:
                     self._calibrate(masked_imgs, masks, generator)
         return ddnm_inpaint_batch(self.model, masked_imgs, masks, generator,
                                   self.t_sampling, self.eta,
-                                  act_scales=self.act_scales)
+                                  act_scales=self.act_scales,
+                                  mesh=self._views_mesh(masked_imgs))
+
+    def _views_mesh(self, masked_imgs):
+        """The mesh when the views split over its dp (JAX shards them only
+        then), else None."""
+        if self.mesh is None or masked_imgs.shape[0] % self.mesh.dp.size:
+            return None
+        return self.mesh
 
     def _calibrate(self, masked_imgs, masks, generator) -> None:
         state = generator.get_state()
+        mesh = self._views_mesh(masked_imgs)
         _, calib = ddnm_inpaint_batch(
             self.model, masked_imgs, masks, generator, self.t_sampling,
-            self.eta, collect_calib=True)
+            self.eta, collect_calib=True, mesh=mesh)
         generator.set_state(state)
         if calib.shape[0]:
             self.act_scales = (calib * self.calib_margin).float()

@@ -33,11 +33,14 @@ from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ...kernels.quant import act_scale, int8_conv, quantize, quantize_act
 from ...ops.image import resize_linear_hwc
+from ...parallel.mesh import (all_reduce, copy_to_tp, reduce_from_tp, rows,
+                              shard_params_dp_tp)
 from .attention import attention_qkv
 
 
@@ -105,10 +108,13 @@ class ActScales:
     (`table[site, step]` is the amax).  `table` is a device fp32 [n_sites,
     n_steps]: each site reads or writes a one-element view of it, so a
     loop over steps syncs nothing.  The model keeps none of it, so
-    threads that share one model each pass their own."""
+    threads that share one model each pass their own.  `group` (a mesh
+    axis, views over dp): a dynamic or collected amax is the max over the
+    axis' ranks, all_reduce(MAX), the global batch's as under GSPMD."""
     mode: str = "dynamic"
     table: Optional[torch.Tensor] = None
     step: int = 0
+    group: object = None
 
     def __post_init__(self):
         if self.mode not in ("dynamic", "collect", "static"):
@@ -151,6 +157,9 @@ class QConv8(nn.Module):
                 channels_last: bool = False, rows: bool = False):
         static = scales.slot(self.site) if scales.mode == "static" else None
         calib = scales.slot(self.site) if scales.mode == "collect" else None
+        if static is None and scales.group is not None:
+            static = all_reduce(x.abs().amax().float().reshape(1),
+                                scales.group, dist.ReduceOp.MAX)
         xq, ax = quantize_act(x, channels_last, static, calib)
         # an NCHW conv input keeps its H x W; a dense layer's rows are
         # B x S x 1 pixels
@@ -194,7 +203,12 @@ def _avg_down2(x):
 
 
 class ResBlock(nn.Module):
-    """reference unet.py:143-257 (scale-shift norm, optional up/down)."""
+    """reference unet.py:143-257 (scale-shift norm, optional up/down).
+    `tp` (set by `shard_unet_tp_`): in_conv holds this rank's output
+    channels, the out norm its 32 / tp groups, out_conv its input
+    channels, whose partial sums are reduced over tp."""
+
+    tp = None
 
     def __init__(self, channels, out_channels, emb_channels, up=False,
                  down=False, use_scale_shift_norm=True):
@@ -220,23 +234,44 @@ class ResBlock(nn.Module):
             h, x = _nearest_up2(h), _nearest_up2(x)
         elif self.down:
             h, x = _avg_down2(h), _avg_down2(x)
+        tp = self.tp
+        if tp is not None:               # in_conv column-parallel
+            h = copy_to_tp(h, tp)
         h = _conv(self.in_layers[2], h, dtype, scales)
         emb_out = _linear(self.emb_layers[1], F.silu(emb), dtype)
         emb_out = emb_out[:, :, None, None]
+        if tp is not None:
+            # emb stays replicated: this rank's channels of each half
+            emb_out = copy_to_tp(emb_out, tp)
+            sl = rows(self.out_layers[0].num_channels * tp.size, tp)
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=1)
+            if tp is not None:
+                scale, shift = scale[:, sl], shift[:, sl]
             h = _group_norm(self.out_layers[0], h).to(dtype) * (1 + scale) \
                 + shift
         else:
+            if tp is not None:
+                emb_out = emb_out[:, sl]
             h = _group_norm(self.out_layers[0], h + emb_out).to(dtype)
-        h = _conv(self.out_layers[3], F.silu(h), dtype, scales)
+        if tp is not None:               # out_conv row-parallel
+            conv = self.out_layers[3]
+            h = reduce_from_tp(F.conv2d(F.silu(h), conv.weight.to(dtype),
+                                        None, conv.stride, conv.padding), tp)
+            h = h + conv.bias.to(dtype)[:, None, None]
+        else:
+            h = _conv(self.out_layers[3], F.silu(h), dtype, scales)
         if not isinstance(self.skip_connection, nn.Identity):
             x = _conv(self.skip_connection, x, dtype, scales)
         return x.to(dtype) + h
 
 
 class AttentionBlock(nn.Module):
-    """reference unet.py:259-305 + QKVAttentionLegacy; attention on K2."""
+    """reference unet.py:259-305 + QKVAttentionLegacy; attention on K2.
+    `tp` (set by `shard_unet_tp_`): qkv holds this rank's heads (its rows
+    are head-major), proj_out their input columns, reduced over tp."""
+
+    tp = None
 
     def __init__(self, channels, num_head_channels=64):
         super().__init__()
@@ -257,11 +292,19 @@ class AttentionBlock(nn.Module):
                                 channels_last=True)           # [b,c,t]
             return x + out.reshape(b, c, hh, ww).to(x.dtype)
         y = y.transpose(1, 2)                                  # [b,t,c]
+        tp = self.tp
+        if tp is not None:    # qkv column (local heads), proj_out row
+            y = copy_to_tp(y, tp)
         qkv = F.linear(y, self.qkv.weight[:, :, 0].to(dtype),
                        self.qkv.bias.to(dtype))
-        a = attention_qkv(qkv.contiguous(), self.num_heads)   # [b,t,c]
-        out = F.linear(a, self.proj_out.weight[:, :, 0].to(dtype),
-                       self.proj_out.bias.to(dtype))
+        a = attention_qkv(qkv.contiguous(), self.num_heads)   # [b,t,c/tp]
+        if tp is not None:
+            out = reduce_from_tp(F.linear(
+                a, self.proj_out.weight[:, :, 0].to(dtype)), tp) \
+                + self.proj_out.bias.to(dtype)
+        else:
+            out = F.linear(a, self.proj_out.weight[:, :, 0].to(dtype),
+                           self.proj_out.bias.to(dtype))
         return x + out.transpose(1, 2).reshape(b, c, hh, ww).to(x.dtype)
 
 
@@ -419,8 +462,9 @@ class UNetModel(nn.Module):
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 scales: ActScales = DYNAMIC) -> torch.Tensor:
-        """x [N, H, W, C_in] float, timesteps [N] -> [N, H, W, out] fp32;
-        `scales` for the w8a8 sites (a table of one row per site)."""
+        """x [N, H, W, C_in] float, timesteps [N] (or [1], shared by every
+        row) -> [N, H, W, out] fp32; `scales` for the w8a8 sites (a table
+        of one row per site)."""
         dt = self.dtype
         h, hs, emb = self._encode(x, timesteps, scales)
         for mods in self.output_blocks:
@@ -644,6 +688,64 @@ def quantize_unet_(model: UNetModel) -> UNetModel:
         return q
 
     return _install_sites(model, make)
+
+
+def _shard_(mod: nn.Module, name: str, dim: int, sl: slice) -> None:
+    p = getattr(mod, name)
+    idx = (slice(None),) * dim + (sl,)
+    setattr(mod, name, nn.Parameter(p.detach()[idx].clone(),
+                                    requires_grad=p.requires_grad))
+
+
+@torch.no_grad()
+def shard_unet_tp_(model: UNetModel, mesh) -> UNetModel:
+    """Keep this rank's tp shard of each ResBlock and AttentionBlock that
+    `parallel.mesh.unet_shard_rule` splits (the Megatron pairing), in
+    place; the blocks' forwards then reduce their partial sums over the
+    mesh's tp axis.  tp == 1 changes nothing.  A w8a8 model stays whole
+    on every rank: JAX's rule splits none of its int8 kernels (only the
+    biases and norms between them, which GSPMD gathers back), so each tp
+    rank runs the whole int8 forward, and the result is one device's."""
+    tp = mesh.tp
+    if tp.size == 1 or model.quant:
+        return model
+    if 32 % tp.size:
+        raise ValueError(f"tp={tp.size} does not divide GroupNorm's 32 "
+                         "groups")
+    rule = shard_params_dp_tp(
+        {n: tuple(p.shape) for n, p in model.named_parameters()}, mesh)
+    for name, mod in list(model.named_modules()):
+        if isinstance(mod, ResBlock):
+            # the rule splits the pair and the norm between on one width
+            if rule[f"{name}.in_layers.2.weight"] is None:
+                continue
+            c = mod.in_layers[2].out_channels
+            sl = rows(c, tp)
+            _shard_(mod.in_layers[2], "weight", 0, sl)
+            _shard_(mod.in_layers[2], "bias", 0, sl)
+            old = mod.out_layers[0]
+            norm = nn.GroupNorm(old.num_groups // tp.size, c // tp.size,
+                                old.eps, device=old.weight.device,
+                                dtype=old.weight.dtype)
+            norm.weight.copy_(old.weight[sl])
+            norm.bias.copy_(old.bias[sl])
+            norm.requires_grad_(old.weight.requires_grad)
+            mod.out_layers[0] = norm
+            _shard_(mod.out_layers[3], "weight", 1, sl)
+            mod.tp = tp
+        elif isinstance(mod, AttentionBlock):
+            if rule[f"{name}.qkv.weight"] is None:
+                continue
+            if mod.num_heads % tp.size:
+                raise ValueError(f"{name}: {mod.num_heads} heads do not "
+                                 f"split over tp={tp.size}")
+            c = mod.proj_out.out_channels
+            _shard_(mod.qkv, "weight", 0, rows(3 * c, tp))
+            _shard_(mod.qkv, "bias", 0, rows(3 * c, tp))
+            _shard_(mod.proj_out, "weight", 1, rows(c, tp))
+            mod.num_heads //= tp.size
+            mod.tp = tp
+    return model
 
 
 @torch.no_grad()

@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...parallel.mesh import (Mesh, all_reduce, broadcast, dp_mean_grads,
+                              flat_views, rows)
 from ..diffusion.train import AdamCosine
 from .convert import state_from_tree, tree_from_state
 from .spatial import compute_spatial
@@ -46,13 +48,15 @@ def loss_fn(network, pos, queries, occupancies):
     return nll.mean(), acc
 
 
-def train_step(network, opt: AdamCosine, pos, queries, occ):
-    """One Adam step on one batch; returns (loss, accuracy) tensors."""
+def train_step(network, opt: AdamCosine, pos, queries, occ,
+               mesh: Optional[Mesh] = None):
+    """One Adam step on one batch (this rank's rows of it, with `mesh`);
+    returns (loss, accuracy) tensors, this rank's."""
     for p in opt.params:
         p.grad = None
     loss, acc = loss_fn(network, pos, queries, occ)
     loss.backward()
-    opt.step()
+    opt.step(None if mesh is None else dp_mean_grads(opt.params, mesh))
     return loss.detach(), acc
 
 
@@ -63,10 +67,16 @@ class CapturedStep:
     sets its time; a replay issues them from the card.  The forward, the
     backward and `AdamCosine.apply` are in the graph; the update's bias
     corrections and rate go in through a device tensor before each
-    replay.  Every batch must have the first one's shapes."""
+    replay.  Every batch must have the first one's shapes.
 
-    def __init__(self, network, opt: AdamCosine, pos, queries, occ):
-        self.opt = opt
+    With a `mesh` the step is two graphs with the gradients' all_reduce
+    over dp between them, launched eagerly on the same stream: the
+    forward + backward, which also copies the gradients into one flat
+    buffer, then the division by dp and the update."""
+
+    def __init__(self, network, opt: AdamCosine, pos, queries, occ,
+                 mesh: Optional[Mesh] = None):
+        self.opt, self.mesh = opt, mesh
         self.inputs = [t.clone() for t in (pos, queries, occ)]
         self.scalars = torch.zeros(3, device=pos.device)
         side = torch.cuda.Stream()
@@ -76,9 +86,21 @@ class CapturedStep:
                 self._loss_and_grad(network)
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
+        if mesh is None:
+            with torch.cuda.graph(self.graph):
+                self.loss, self.acc = self._loss_and_grad(network)
+                opt.apply([p.grad for p in opt.params], *self.scalars)
+            return
+        self.flat = torch.zeros(sum(p.numel() for p in opt.params),
+                                device=pos.device)
         with torch.cuda.graph(self.graph):
             self.loss, self.acc = self._loss_and_grad(network)
-            opt.apply([p.grad for p in opt.params], *self.scalars)
+            self.flat.copy_(torch.cat([p.grad.reshape(-1)
+                                       for p in opt.params]))
+        self.update = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.update):
+            opt.apply(flat_views(self.flat / mesh.dp.size, opt.params),
+                      *self.scalars)
 
     def _loss_and_grad(self, network):
         for p in self.opt.params:
@@ -95,18 +117,25 @@ class CapturedStep:
             dst.copy_(src)
         self.scalars.copy_(torch.tensor(self.opt.scalars()))
         self.graph.replay()
+        if self.mesh is not None:
+            all_reduce(self.flat, self.mesh.dp)
+            self.update.replay()
         self.opt.count += 1
         return self.loss.clone(), self.acc.clone()
 
 
-def train_epoch(network, opt: AdamCosine, pos, queries, occ, step=None):
+def train_epoch(network, opt: AdamCosine, pos, queries, occ, step=None,
+                mesh: Optional[Mesh] = None):
     """One step per leading index of pos [S, B, N, 3] (queries, occ
     alike), by `step` (a `CapturedStep`; default `train_step`); returns
-    the mean loss and accuracy, read once at the end."""
-    step = step or (lambda *b: train_step(network, opt, *b))
+    the mean loss and accuracy, read once at the end.  With `mesh`, pos
+    is this rank's rows and the means are over dp too (one all_reduce)."""
+    step = step or (lambda *b: train_step(network, opt, *b, mesh=mesh))
     la = torch.stack([torch.stack(step(pos[i], queries[i], occ[i]))
-                      for i in range(pos.shape[0])])
-    loss, acc = la.mean(0).tolist()
+                      for i in range(pos.shape[0])]).mean(0)
+    if mesh is not None:
+        la = all_reduce(la, mesh.dp) / mesh.dp.size
+    loss, acc = la.tolist()
     return loss, acc
 
 
@@ -184,16 +213,26 @@ def fit(network, data_iter: Iterator, epochs: int = 1,
     `CapturedStep`.  `lr_decay` takes Adam's rate down a cosine to lr/10
     over the run.  A checkpoint at `checkpoint_path` resumes its weights
     and epoch with a fresh optimizer, as the JAX package does.  Returns
-    (network, history)."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel POCO training (mesh=): "
-                                  "a later port slice")
+    (network, history).
+
+    `mesh` (parallel.mesh.make_mesh; JAX's data-parallel `mesh=`): every
+    rank draws the whole batch and trains on its B / dp rows; the
+    weights start as rank 0's, the gradients are averaged over dp
+    (`dp_mean_grads`) and Adam runs replicated; only rank 0 validates and
+    writes checkpoints."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh: expected a parallel.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
     dev = next(network.parameters()).device
     start_epoch = 0
     if checkpoint_path and os.path.exists(checkpoint_path):
         ck = load_checkpoint(checkpoint_path)
         network.load_state_dict(state_from_tree(ck["params"]))
         start_epoch = ck["epoch"]
+    lead = mesh is None or mesh.rank == 0
+    mine = slice(None)
+    if mesh is not None:
+        _broadcast_state(network, mesh)
     opt = AdamCosine(network.parameters(), lr,
                      max(1, epochs * steps_per_epoch),
                      alpha=0.1 if lr_decay else 1.0)
@@ -201,13 +240,17 @@ def fit(network, data_iter: Iterator, epochs: int = 1,
     history, step = [], None
     for epoch in range(start_epoch, epochs):
         batches = [next(data_iter) for _ in range(steps_per_epoch)]
-        pos, queries, occ = (torch.as_tensor(np.stack([b[i] for b in batches]),
-                                             device=dev) for i in range(3))
+        if mesh is not None:
+            mine = rows(len(batches[0][0]), mesh.dp)
+        pos, queries, occ = (torch.as_tensor(
+            np.stack([b[i][mine] for b in batches]), device=dev)
+            for i in range(3))
         if step is None and dev.type == "cuda":
-            step = CapturedStep(network, opt, pos[0], queries[0], occ[0])
-        loss, acc = train_epoch(network, opt, pos, queries, occ, step)
+            step = CapturedStep(network, opt, pos[0], queries[0], occ[0],
+                                mesh)
+        loss, acc = train_epoch(network, opt, pos, queries, occ, step, mesh)
         rec = {"epoch": epoch, "loss": loss, "acc": acc}
-        if val_batch is not None:
+        if val_batch is not None and lead:
             with torch.no_grad():
                 logits = batched_forward(
                     network, torch.as_tensor(val_batch[0], device=dev),
@@ -217,10 +260,25 @@ def fit(network, data_iter: Iterator, epochs: int = 1,
         history.append(rec)
         if logger:
             logger.info(f"epoch {epoch}: {rec}")
-        if checkpoint_path and ((epoch + 1) % checkpoint_every == 0
-                                or epoch + 1 == epochs):
+        if lead and checkpoint_path and ((epoch + 1) % checkpoint_every == 0
+                                         or epoch + 1 == epochs):
             save_checkpoint(checkpoint_path, network, opt, epoch + 1)
     return network, history
+
+
+@torch.no_grad()
+def _broadcast_state(network, mesh: Mesh) -> None:
+    """Every tensor of the state from rank 0, one flat buffer a dtype,
+    over tp and then over dp (rank 0 is the first of both its groups)."""
+    state = list(network.state_dict().values())
+    for dt in sorted({t.dtype for t in state}, key=str):
+        ts = [t for t in state if t.dtype == dt]
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        for axis in (mesh.tp, mesh.dp):
+            if axis.size > 1 or axis is mesh.dp:
+                broadcast(flat, axis)
+        for t, v in zip(ts, flat_views(flat, ts)):
+            t.copy_(v)
 
 
 def synthetic_occupancy_batch(rng: np.random.Generator, batch: int = 2,

@@ -19,12 +19,13 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from ...mesh import Mesh
 from ...ops.image import bilinear_sample
 from ...pipeline.pipeline import resolve_device
 from ..diffusion.train import AdamCosine
@@ -229,24 +230,15 @@ def fit_and_paint(atlas_img: torch.Tensor, atlas_painted: torch.Tensor,
     return torch.where(unseen[..., None], pred01, atlas_img)
 
 
-class TexturedMesh(NamedTuple):
-    """The fields of core/mesh.py::Mesh."""
-
-    vertices: np.ndarray          # [V, 3] float32
-    faces: np.ndarray             # [F, 3] int
-    uvs: np.ndarray               # [Nuv, 2]
-    face_uv_idx: np.ndarray       # [F, 3]
-    texture: np.ndarray           # [R, R, 3] float in [0, 1]
-
-
 def get_textured_mesh(vertices, faces, input_xyz, input_rgb01,
                       atlas_res: int = 1024, iterations: int = 400,
                       generator: Optional[torch.Generator] = None,
-                      device="cuda") -> TexturedMesh:
+                      device="cuda") -> Mesh:
     """The whole TextureField generator path (reference TF_Network.py:
     112-224, unused by the demo): unwrap the mesh, fit the field to the
     input cloud, evaluate it at every covered texel of the baked atlas and
-    nearest-fill the rest."""
+    nearest-fill the rest.  Returns a `mesh.Mesh` (`.write(path)` to an
+    OBJ, PLY or GLB)."""
     from ...pipeline import complete as pcomplete
     from ...pipeline import unwrap as punwrap
 
@@ -264,5 +256,5 @@ def get_textured_mesh(vertices, faces, input_xyz, input_rgb01,
     atlas = torch.clamp(pred * 0.5 + 0.5, 0.0, 1.0).reshape(
         atlas_res, atlas_res, 3)
     atlas = pcomplete.dilate_atlas(atlas, baked["mask"])
-    return TexturedMesh(vertices=vertices, faces=faces, uvs=uvs,
-                        face_uv_idx=fuv, texture=atlas.cpu().numpy())
+    return Mesh(vertices=vertices, faces=faces, uvs=uvs, face_uv_idx=fuv,
+                texture=atlas.cpu().numpy())

@@ -15,6 +15,12 @@ seconds are recorded as `unwrap.thread` and `unwrap.thread_cpu`.  With
 `unproject_by: face` no unwrap runs: each face takes one inpainted view
 (pipeline/face_assign.py) and the mesh is written with one material a
 view.
+
+Under an initialised torch.distributed group of world size n > 1 every
+rank runs every stage on the same input; with `ddnm_data_parallel` and
+`view_num % n == 0` the DDNM views split over the n ranks (JAX's
+sharded views, `parallel/mesh.py`).  The ranks agree on which stage
+caches exist before any of them writes, and only rank 0 writes files.
 """
 from __future__ import annotations
 
@@ -25,11 +31,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import io as pio
 from ..camera import CameraRig, make_camera_rig
 from ..config import PipelineConfig
 from ..log import StageTimer, get_logger
+from ..parallel import mesh as pmesh
 from ..ops import image as oimg
 from ..ops import raster as orast
 from . import complete as pcomplete
@@ -85,6 +93,10 @@ def load_gt_views(path: str, n_views: int, res: int,
     return views
 
 
+def _world() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on; CUDA must be present when asked
     for (there is no silent continuation on the CPU)."""
@@ -106,6 +118,7 @@ class Pipeline:
     inpainter: object = None
     poco_apply: object = None    # occupancy field factory or None
     logger: object = None
+    writes: bool = True          # False on ranks other than 0
 
     @classmethod
     def create(cls, cfg: PipelineConfig, device="cuda",
@@ -119,7 +132,9 @@ class Pipeline:
         tiny one).  The UNet computes in bf16 on the card and in fp32 on
         the CPU; POCO (geo_from 'POCO' with a `poco_checkpoint`) in fp32.
         `ddnm_quant_int8` builds the w8a8 UNet (`ddnm_quant_static`: static
-        per-step activation scales, calibrated on the first shape)."""
+        per-step activation scales, calibrated on the first shape).
+        Under a process group of n > 1 ranks, `ddnm_data_parallel` splits
+        the DDNM views over them when n divides `view_num`."""
         dev = resolve_device(device)
         logger = get_logger(log_file)
         rig = make_camera_rig(cfg.view_num, cfg.cam_distance, cfg.cam_res,
@@ -132,8 +147,13 @@ class Pipeline:
 
                 dtype = (torch.bfloat16 if dev.type == "cuda"
                          else torch.float32)
+                mesh, n = None, _world()
+                if cfg.ddnm_data_parallel and n > 1 \
+                        and cfg.view_num % n == 0:
+                    mesh = pmesh.make_mesh(n, tp=1)
+                    logger.info(f"DDNM views sharded over {n} devices")
                 inpainter = load_inpainter(cfg.diffusion_checkpoint, logger,
-                                           device=dev,
+                                           device=dev, mesh=mesh,
                                            model_kwargs=unet_kwargs,
                                            dtype=dtype,
                                            quant_int8=cfg.ddnm_quant_int8,
@@ -154,7 +174,18 @@ class Pipeline:
                                          decoder=cfg.network_decoder,
                                          device=dev)
         return cls(cfg=cfg, device=dev, rig=rig, inpainter=inpainter,
-                   poco_apply=poco_apply, logger=logger)
+                   poco_apply=poco_apply, logger=logger,
+                   writes=not dist.is_initialized() or dist.get_rank() == 0)
+
+    def _agree(self, flags):
+        """Each flag true on every rank (one all_reduce(MIN) when there
+        are several ranks): the ranks take the same cached or computed
+        path even if one of them lacks a cache file."""
+        if _world() == 1:
+            return list(flags)
+        t = torch.tensor([int(f) for f in flags], device=self.device)
+        pmesh.all_reduce(t, pmesh.world_axis(), dist.ReduceOp.MIN)
+        return [bool(v) for v in t.tolist()]
 
     def recon_one_textured_mesh(self, pc_file: str,
                                 name: Optional[str] = None,
@@ -165,8 +196,18 @@ class Pipeline:
         out_root = os.path.join(cfg.output_path, name)
         geo_dir = os.path.join(out_root, "geo")
         others_dir = os.path.join(out_root, "others")
-        os.makedirs(geo_dir, exist_ok=True)
-        os.makedirs(others_dir, exist_ok=True)
+        writes = self.writes
+        if writes:
+            os.makedirs(geo_dir, exist_ok=True)
+            os.makedirs(others_dir, exist_ok=True)
+        R = cfg.xatlas_texture_res
+        own_geo = os.path.join(geo_dir, "untextured.obj")
+        unwrap_cache = os.path.join(geo_dir, f"unwrap_{R}.npz")
+        cached = [os.path.join(others_dir, f"{i}_inpainted.png")
+                  for i in range(self.rig.num_views)]
+        have_geo, have_unwrap, have_views = self._agree(
+            [os.path.exists(own_geo), os.path.exists(unwrap_cache),
+             all(os.path.exists(p) for p in cached)])
 
         # ---- input ----------------------------------------------------
         xyz, rgb = pio.read_ply_xyzrgb(pc_file)
@@ -181,20 +222,19 @@ class Pipeline:
             hpr_future = pio.async_executor().submit(
                 osplat.hidden_point_removal_visibility, xyz_n,
                 self.rig.eyes.cpu().numpy(), cfg.hidden_point_removal_radius)
-        if cfg.save_input_pc:
+        if cfg.save_input_pc and writes:
             pio.save_colored_pc_ply(xyz_n, rgb.astype(np.float32) / 255.0,
                                     os.path.join(out_root, "input_pc.ply"))
 
         # ---- geometry (cached) ----------------------------------------
         with timer.stage("geometry"):
             cached_geo = pc_file.replace(".ply", "_untextured_mesh.obj")
-            own_geo = os.path.join(geo_dir, "untextured.obj")
             external_mesh = os.path.exists(cached_geo)
             if external_mesh:
                 m = pio.load_obj(cached_geo)
                 verts = (m["vertices"] - center) / scale
                 faces = m["faces"]
-            elif os.path.exists(own_geo):
+            elif have_geo:
                 m = pio.load_obj(own_geo)
                 verts, faces = m["vertices"], m["faces"]
             else:
@@ -208,8 +248,9 @@ class Pipeline:
                     timer=timer)
                 # read only by later runs: written on the io thread
                 # (flush_async_io at export guards reuse)
-                pio.submit_async_io(
-                    lambda v=verts, f=faces: pio.save_obj(v, f, own_geo))
+                if writes:
+                    pio.submit_async_io(
+                        lambda v=verts, f=faces: pio.save_obj(v, f, own_geo))
 
         verts_p, faces_p, _, n_faces = _pad_mesh(verts, faces)
         xyz_p, colors_p, point_mask = _pad_points(
@@ -220,11 +261,8 @@ class Pipeline:
         f_normals = orast.face_normals(verts_t, faces_t)
 
         # ---- unwrap (host LSCM/packing) on the io thread ---------------
-        R = cfg.xatlas_texture_res
-        unwrap_cache = os.path.join(geo_dir, f"unwrap_{R}.npz")
-
         def _unwrap_host():
-            if os.path.exists(unwrap_cache):
+            if have_unwrap:
                 z = np.load(unwrap_cache)
                 return z["uvs"], z["face_uv_idx"]
             # the thread's own wall and CPU time: it shares the host with
@@ -233,7 +271,8 @@ class Pipeline:
             uv, fuv = punwrap.unwrap(verts, faces, atlas_res=R)
             timer.record("unwrap.thread", time.perf_counter() - t0)
             timer.record("unwrap.thread_cpu", time.thread_time() - c0)
-            np.savez(unwrap_cache, uvs=uv, face_uv_idx=fuv)
+            if writes:
+                np.savez(unwrap_cache, uvs=uv, face_uv_idx=fuv)
             return uv, fuv
 
         face_mode = cfg.unproject_by == "face"
@@ -262,16 +301,15 @@ class Pipeline:
             sparse = pproject.make_sparse_images(
                 proj, colors, cfg.res, cfg.point_size, cfg.edge_point_size,
                 cfg.mask_ratio_thresh)
-            pio.save_rgb_stack_async(
-                sparse.sparse_imgs,
-                [os.path.join(others_dir, f"{i}_sparse.png")
-                 for i in range(self.rig.num_views)])
+            if writes:
+                pio.save_rgb_stack_async(
+                    sparse.sparse_imgs,
+                    [os.path.join(others_dir, f"{i}_sparse.png")
+                     for i in range(self.rig.num_views)])
 
         # ---- inpaint (cached) -----------------------------------------
         scale_factors = sparse.scale_factors
         with timer.stage("inpaint"):
-            cached = [os.path.join(others_dir, f"{i}_inpainted.png")
-                      for i in range(self.rig.num_views)]
             if cfg.gt_views_path:
                 # dense views rendered beforehand stand in for the
                 # inpainted ones (reference use_GT_multi_view_img)
@@ -283,14 +321,15 @@ class Pipeline:
                                           self.rig.num_views, cfg.res, dev)
                 # dense renders carry no shrink-to-fit rescale
                 scale_factors = torch.ones_like(scale_factors)
-            elif all(os.path.exists(p) for p in cached):
+            elif have_views:
                 inpainted = torch.as_tensor(
                     np.stack([pio.load_rgb(p) for p in cached]), device=dev)
             else:
                 inpainted = pinpaint.get_inpainted_images(
                     sparse.sparse_imgs, sparse.hard_mask0, sparse.hard_mask2,
                     cfg.texture_gen_method, self.inpainter)
-                pio.save_rgb_stack_async(inpainted, cached)
+                if writes:
+                    pio.save_rgb_stack_async(inpainted, cached)
 
         # ---- face-mode unprojection (unproject_by='face') --------------
         if face_mode:
@@ -310,9 +349,11 @@ class Pipeline:
                     self.rig, verts_p, faces, proj.uv_centers,
                     proj.uv_scales, proj.padding, scale_factors, fv_ids)
             with timer.stage("export"):
-                obj_path = pexport.save_multi_material_obj(
-                    verts, faces, fv_ids, f_uvs, inpainted,
-                    os.path.join(out_root, "models"))
+                models_dir = os.path.join(out_root, "models")
+                obj_path = (pexport.save_multi_material_obj(
+                    verts, faces, fv_ids, f_uvs, inpainted, models_dir)
+                    if writes else
+                    os.path.join(models_dir, "model_normalized.obj"))
                 pio.flush_async_io()
             if log:
                 log.info("stage timings:\n" + timer.report())
@@ -381,9 +422,10 @@ class Pipeline:
 
         # ---- export ---------------------------------------------------
         with timer.stage("export"):
-            obj_path = pexport.save_textured_mesh(
+            obj_path = (pexport.save_textured_mesh(
                 verts, uvs, faces, face_uv_idx, atlas_img, atlas["mask"],
-                out_root)
+                out_root) if writes else os.path.join(
+                    out_root, "models", "model_normalized.obj"))
             pio.flush_async_io()
         if log:
             log.info("stage timings:\n" + timer.report())

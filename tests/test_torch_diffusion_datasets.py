@@ -6,8 +6,9 @@ The JAX datasets preprocess through PIL; the port's numpy copy of PIL's
 8-bit resampling gives the same uint8 crops, bit for bit: ImageNet's BOX
 halving + BICUBIC + centre crop on 700x520 and 300x260 images, the fixed
 CelebA crop + BICUBIC on a 178x218 face, CIFAR10's BILINEAR, read from
-PNG, PPM and BMP.  `.jpg` files, which JAX reads through PIL, are refused
-by name.  ckpt_util runs over file:// URLs only."""
+PNG, PPM and BMP.  `.jpg` files, which JAX reads through PIL, decode as
+PIL decodes them (io.decode_jpeg); `.webp` files are refused by name.
+ckpt_util runs over file:// URLs only."""
 import hashlib
 import os
 
@@ -97,12 +98,24 @@ def test_ascii_ppm_and_gray_images_read_as_pil_reads_them(tmp_path):
 
 @pytest.mark.parametrize("ext", [".jpg", ".jpeg", ".webp"])
 def test_jpeg_and_webp_are_refused_by_name(ext, tmp_path):
+    # JPEG is read now (bit-equal to PIL, tests/test_torch_jpeg.py); WebP
+    # is still refused by name
     root = _folder(tmp_path, {"a.png": (64, 64, 16)})
     bad = os.path.join(root, "z" + ext)
     Image.fromarray(_img(64, 64, 17)).save(bad)
+    assert len(JD.get_dataset("IMAGENET", root, image_size=32)) == 2
+    if ext != ".webp":
+        jd = JD.get_dataset("IMAGENET", root, image_size=32)
+        td = TD.get_dataset("IMAGENET", root, image_size=32)
+        assert td.files == jd.files
+        for i in range(2):
+            np.testing.assert_array_equal(td[i], jd[i])
+        np.testing.assert_array_equal(
+            tio.load_rgb_uint8(bad),
+            np.asarray(Image.open(bad).convert("RGB")))
+        return
     # the JAX package reads it through PIL; the port names the file and
     # the ROADMAP item instead of skipping it
-    assert len(JD.get_dataset("IMAGENET", root, image_size=32)) == 2
     with pytest.raises(NotImplementedError, match=r"z\%s.*JPEG" % ext):
         TD.get_dataset("IMAGENET", root, image_size=32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

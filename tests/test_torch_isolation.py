@@ -20,7 +20,7 @@ from pointdreamer_tpu_torch.pipeline.pipeline import Pipeline
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "PIL", "cv2", "yaml",
-             "pointdreamer_tpu"}
+             "matplotlib", "pointdreamer_tpu"}
 
 
 def _port_sources():
@@ -62,7 +62,9 @@ def test_port_imports_nothing_forbidden():
                 "models/diffusion/datasets.py",
                 "models/diffusion/ckpt_util.py", "ops/resample.py",
                 "cli/ddnm_restore.py", "baselines/nksr.py",
-                "cli/nksr_baseline.py"):
+                "cli/nksr_baseline.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/dryrun.py", "data/sample.py",
+                "mesh.py", "vis.py", "jpeg.py"):
         assert os.path.join("pointdreamer_tpu_torch", mod) in scanned
     for path in _port_sources():
         with open(path) as fh:
@@ -107,7 +109,8 @@ def test_create_without_a_device_needs_cuda():
                                   "ddnm_restore", "fit_kernel_field",
                                   "recon_one_shape_NKSR", "nksr_baseline",
                                   "build_unet", "build_superres",
-                                  "build_encoder", "build_ddpm_unet"])
+                                  "build_encoder", "build_ddpm_unet",
+                                  "sample_colored_pc_from_mesh"])
 def test_helpers_without_a_device_need_cuda(call, tmp_path):
     # the helpers an entry point calls default to device='cuda' too
     if torch.cuda.is_available():
@@ -115,6 +118,7 @@ def test_helpers_without_a_device_need_cuda(call, tmp_path):
     from pointdreamer_tpu_torch.baselines import nksr
     from pointdreamer_tpu_torch.baselines.spr import recon_one_shape_SPR
     from pointdreamer_tpu_torch.camera import make_camera_rig
+    from pointdreamer_tpu_torch.data import sample
     from pointdreamer_tpu_torch.cli import (ddnm_restore, eval_meshes,
                                             eval_point2surf, generate,
                                             geometry_table, nksr_baseline,
@@ -188,7 +192,9 @@ def test_helpers_without_a_device_need_cuda(call, tmp_path):
                cls=diffusion.EncoderUNetModel,
                model_kwargs=dict(model_channels=128, out_channels=1000,
                                  pool="attention")),
-           "build_ddpm_unet": lambda: diffusion.build_ddpm_unet()}
+           "build_ddpm_unet": lambda: diffusion.build_ddpm_unet(),
+           "sample_colored_pc_from_mesh": lambda:
+               sample.sample_colored_pc_from_mesh(pts[:6], tri)}
     with pytest.raises((RuntimeError, AssertionError),
                        match="CUDA|Torch not compiled"):
         run[call]()
@@ -249,3 +255,40 @@ def test_wrappers_take_the_plain_version_only_on_cpu(case, monkeypatch):
     # no wrapper falls back to the plain version
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         wrapper(*[a.to("meta") for a in args])
+
+
+def test_demo_without_world_size_joins_no_process_group(tmp_path,
+                                                         monkeypatch):
+    # the demo initialises torch.distributed only under torch.distributed.
+    # run (WORLD_SIZE set); a plain run must never create a group
+    import torch.distributed as dist
+
+    from pointdreamer_tpu_torch import demo
+    from pointdreamer_tpu_torch import synthetic
+    from pointdreamer_tpu_torch.pipeline import pipeline as tpipe
+
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+
+    def no_group(*a, **k):
+        raise AssertionError("init_process_group called without WORLD_SIZE")
+
+    monkeypatch.setattr(dist, "init_process_group", no_group)
+    ran = []
+
+    class Stub:
+        logger = tpipe.get_logger(None)
+
+        def recon_one_textured_mesh(self, pc_file, name):
+            ran.append((pc_file, name, dist.is_initialized()))
+
+    monkeypatch.setattr(tpipe.Pipeline, "create",
+                        classmethod(lambda cls, cfg, **kw: Stub()))
+    ply = synthetic.write_cube_inputs(str(tmp_path / "in"), n_div=2,
+                                      n_points=100, with_mesh=False)
+    cfg = tmp_path / "c.yaml"
+    cfg.write_text(open(os.path.join(REPO, "configs", "nearest.yaml")).read()
+                   + f"\noutput_path: {tmp_path / 'out'}\n")
+    demo.main(["--config", str(cfg), "--pc_file", ply, "--device", "cpu"])
+    assert ran == [(ply, "cube_c", False)]
+    assert not dist.is_initialized()
+    assert demo.init_distributed("cpu") == "cpu"

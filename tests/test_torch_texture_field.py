@@ -20,6 +20,7 @@ import torch
 from pointdreamer_tpu.models.texture_field import triplane as jtf
 from pointdreamer_tpu.pipeline import unwrap as junwrap
 from pointdreamer_tpu_torch import synthetic
+from pointdreamer_tpu_torch.mesh import Mesh
 from pointdreamer_tpu_torch.models.texture_field import triplane as ttf
 from pointdreamer_tpu_torch.pipeline import unwrap as tunwrap
 
@@ -124,7 +125,7 @@ def test_get_textured_mesh_matches_jax(monkeypatch):
                         lambda *a, **k: real(*a, **{**k, "init": init}))
     got = ttf.get_textured_mesh(v, f, xyz, rgb, atlas_res=64, iterations=20,
                                 device="cpu")
-    assert isinstance(got, ttf.TexturedMesh)
+    assert isinstance(got, Mesh)
     np.testing.assert_array_equal(got.vertices, v)
     np.testing.assert_array_equal(got.faces, f)
     np.testing.assert_array_equal(got.uvs, want.uvs)
