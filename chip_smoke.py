@@ -218,6 +218,22 @@ Phases (each prints its own lines; any failure exits non-zero):
                 1e-5), phase 4's mesh as GLB read back (triangles and
                 texture), a sheet of phase 4's views and the cloud's three
                 views.
+ 13. image    : the image decoders of the port (webp.py, vp8.py, vp8l.py,
+     input      jpeg.py's progressive scans; host code).  (a) every WebP
+                fixture of tests/data/webp and every progressive JPEG
+                fixture of tests/data/jpeg through io.load_image against
+                its committed PIL decode, bit for bit; host seconds per
+                file type.  (b) cli/ddnm_restore in dataset mode over a
+                folder of 8 of those fixtures (lossy, lossless, alpha,
+                raw-alpha and animated WebP, progressive JPEG), IMAGENET
+                preprocessing, sr4, batch 8, 100 steps on the seeded
+                random 552.8M bf16 UNet: the batch the dataset feeds equals
+                the batch built from the committed PNG decodes, K2 = 1600,
+                outputs finite in [0, 1], 16 PNGs.  (c) the 512x384 timing
+                fixtures of tests/data/timing (lossy WebP at quality 80,
+                progressive JPEG): the median host seconds of 3 decodes
+                and the SHA-256 of the decoded bytes against the committed
+                one; the host CPU's model.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2931,6 +2947,187 @@ def host_tools_phase(dev, work: str, views_dir: str) -> None:
             fail(f"{f} was not written")
 
 
+# ---- phase 13: image input (WebP, progressive JPEG) -----------------------
+
+# the restore folder's 8 fixtures: (directory under tests/data, name, ext)
+RESTORE_FIXTURES = (("webp", "lossy", ".webp"),
+                    ("webp", "lossless_palette", ".webp"),
+                    ("webp", "lossless_noisy", ".webp"),
+                    ("webp", "alpha_lossy", ".webp"),
+                    ("webp", "raw_alpha", ".webp"),
+                    ("webp", "animated", ".webp"),
+                    ("jpeg", "prog_420", ".jpg"),
+                    ("jpeg", "prog_restart", ".jpg"))
+
+
+def host_cpu_model() -> str:
+    """The host CPU's model name (lscpu, else /proc/cpuinfo) and its
+    architecture."""
+    import platform
+
+    name = ""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=10).stdout
+        name = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                     if ln.strip().startswith("Model name")), "")
+    except (OSError, subprocess.SubprocessError):
+        pass
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                k, _, v = ln.partition(":")
+                fields.setdefault(k.strip(), v.strip())
+    except OSError:
+        pass
+    if not name or name == "unknown":
+        name = fields.get("model name", "unknown")
+    # a virtualised host may hide the name: the vendor, family, model and clock
+    # still identify the part
+    ident = ", ".join(f"{k} {fields[k]}" for k in
+                      ("vendor_id", "cpu family", "model", "cpu MHz")
+                      if k in fields)
+    return f"{name} ({ident}; {platform.machine()}, {os.cpu_count()} " \
+        "logical CPUs)"
+
+
+def image_input_phase(dev, work: str, steps: int = 100,
+                      batch: int = 8) -> None:
+    """Phase 13: the committed WebP and progressive-JPEG fixtures against
+    their PIL decodes, the restore CLI over a folder of them, and the
+    decode times of the 512x384 timing fixtures."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from pointdreamer_tpu_torch import io as pio
+    from pointdreamer_tpu_torch import kernels
+    from pointdreamer_tpu_torch.cli import ddnm_restore
+    from pointdreamer_tpu_torch.models.diffusion import datasets, svd_ops
+
+    data = os.path.join(REPO, "tests", "data")
+    # (a) fixtures, bit for bit
+    fixtures = [("webp", f[:-5], ".webp") for f in sorted(os.listdir(
+        os.path.join(data, "webp"))) if f.endswith(".webp")]
+    fixtures += [("jpeg", f[:-4], ".jpg") for f in sorted(os.listdir(
+        os.path.join(data, "jpeg"))) if f.startswith("prog_")
+        and f.endswith(".jpg")]
+    secs = {".webp": 0.0, ".jpg": 0.0}
+    for sub, name, ext in fixtures:
+        t0 = time.perf_counter()
+        # the WebP PNGs hold Image.open's pixels, the JPEG ones convert("RGB")
+        load = pio.load_image if ext == ".webp" else pio.load_rgb_uint8
+        got = load(os.path.join(data, sub, name + ext))
+        secs[ext] += time.perf_counter() - t0
+        want = pio.load_png(os.path.join(data, sub, name + ".png"))
+        if not (got.shape == want.shape and (got == want).all()):
+            fail(f"image fixture {sub}/{name}{ext}: the decode is not PIL's")
+    n_webp = sum(ext == ".webp" for _, _, ext in fixtures)
+    print(f"[image input] {n_webp} WebP fixtures decode bit-equal to their "
+          f"PIL decodes in {secs['.webp']:.3f} s, "
+          f"{len(fixtures) - n_webp} progressive JPEG fixtures in "
+          f"{secs['.jpg']:.3f} s (host)")
+    if n_webp < 7 or len(fixtures) - n_webp < 4:
+        fail(f"image fixtures: {fixtures}")
+
+    # (b) the restore CLI over a folder of them
+    src = os.path.join(work, "phase13_in")
+    out = os.path.join(work, "phase13_out")
+    os.makedirs(src, exist_ok=True)
+    for sub, name, ext in RESTORE_FIXTURES:
+        shutil.copy(os.path.join(data, sub, name + ext),
+                    os.path.join(src, name + ext))
+    fed, runs = [], []
+    plain_batches = datasets.ImageFolderDataset.batches
+    plain_sample = svd_ops.ddnm_plus_sample
+
+    def batches(self, batch_size):
+        for names, imgs in plain_batches(self, batch_size):
+            fed.append((names, imgs))
+            yield names, imgs
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = plain_sample(*a, **k)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, y))
+        return y
+
+    datasets.ImageFolderDataset.batches = batches
+    svd_ops.ddnm_plus_sample = timed
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        ddnm_restore.main(["--image_dir", src, "--dataset", "IMAGENET",
+                           "--deg", "sr4", "--batch", str(batch),
+                           "--steps", str(steps), "--out", out])
+    finally:
+        datasets.ImageFolderDataset.batches = plain_batches
+        svd_ops.ddnm_plus_sample = plain_sample
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    ref_dir = {sub: os.path.join(data, sub) for sub, _, _ in
+               RESTORE_FIXTURES}
+    by_stem = {name: sub for sub, name, _ in RESTORE_FIXTURES}
+    same = bool(fed)
+    for names, imgs in fed:
+        want = np.stack([datasets.center_crop_arr(pio.load_rgb_uint8(
+            os.path.join(ref_dir[by_stem[os.path.splitext(
+                os.path.basename(n))[0]]], os.path.splitext(
+                os.path.basename(n))[0] + ".png")), 256).astype(
+            np.float32) / 255.0 for n in names])
+        same &= imgs.shape == want.shape and bool((imgs == want).all())
+    ys = torch.cat([y for _, y in runs]) if runs else torch.zeros(0)
+    finite = bool(torch.isfinite(ys).all())
+    lo, hi = (float(ys.min()), float(ys.max())) if ys.numel() else (0, 0)
+    files = sorted(os.listdir(out)) if os.path.isdir(out) else []
+    want_files = sorted(f"{name}{s}.png" for _, name, _ in RESTORE_FIXTURES
+                        for s in ("", "_degraded"))
+    print(f"[image input] ddnm_restore --dataset IMAGENET --deg sr4 --batch "
+          f"{batch} --steps {steps} over {len(RESTORE_FIXTURES)} WebP and "
+          f"progressive JPEG fixtures: {wall:.3f} s (the sampler "
+          f"{sum(t for t, _ in runs):.3f} s over {len(runs)} batch(es)); "
+          f"fed batch equal to the PNG-decoded batch: {same}; launches "
+          f"{json.dumps(launches)}; outputs {tuple(ys.shape)} finite "
+          f"{finite} in [{lo:.4f}, {hi:.4f}]; {len(files)} PNGs")
+    if not same:
+        fail("restore: the dataset's batch differs from the batch of the "
+             "committed PNG decodes")
+    if launches.get("attention_qkv") != 16 * steps:
+        fail(f"restore: K2 launched {launches.get('attention_qkv')} times, "
+             f"not {16 * steps}")
+    if not (ys.shape[0] == len(RESTORE_FIXTURES) and finite and lo >= 0
+            and hi <= 1):
+        fail(f"restore: outputs {tuple(ys.shape)}, finite {finite}, range "
+             f"[{lo}, {hi}]")
+    if files != want_files:
+        fail(f"restore: wrote {files}")
+
+    # (c) the timing fixtures
+    timing = os.path.join(data, "timing")
+    for f, what in (("webp_q80_512x384.webp", "lossy WebP (vp8.py)"),
+                    ("jpeg_prog_512x384.jpg", "progressive JPEG (jpeg.py)")):
+        path = os.path.join(timing, f)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = pio.load_image(path)
+            times.append(time.perf_counter() - t0)
+        digest = hashlib.sha256(img.tobytes()).hexdigest()
+        with open(os.path.splitext(path)[0] + ".sha256") as fh:
+            want = fh.read().strip()
+        same = "matches" if digest == want else "DIFFERS"
+        print(f"[image input] {f} {img.shape}: {what} decode "
+              f"{sorted(times)[1]:.4f} s (median of 3, host CPU "
+              f"{host_cpu_model()}); SHA-256 {same}")
+        if digest != want:
+            fail(f"{f}: decoded bytes {digest}, committed {want}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3355,6 +3552,12 @@ def main() -> int:
     host_tools_phase(dev, work, bf16_views)
     print(f"[multidevice & host tools] phase 12 "
           f"{time.perf_counter() - t12:.2f} s")
+
+    # ---- 13. image input: WebP and progressive JPEG --------------------
+    t13 = time.perf_counter()
+    torch.cuda.empty_cache()
+    image_input_phase(dev, work)
+    print(f"[image input] phase 13 {time.perf_counter() - t13:.2f} s")
 
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,16 @@
-"""Host-side IO: PLY point clouds and meshes, OBJ/MTL meshes, 8-bit PNG
-images.
+"""Host-side IO: PLY point clouds and meshes, OBJ/MTL meshes, images.
 
-Twin of pointdreamer_tpu's core/io.py without PIL or cv2: PNGs are written
-and read with zlib + struct (8-bit gray, gray+alpha, RGB and RGBA; all
-five row filters on read, filter 0 on write); binary and ASCII PPM/PGM
-(maxval 255), uncompressed 24/32-bit BMP and baseline JPEG (`jpeg.py`)
-are read too.  WebP needs a decoder the port does not have (ROADMAP
-Queue A item 9): reading one raises.  Image writers take numpy
-arrays or torch tensors; a device tensor is quantized to uint8 on the
-device before the one host transfer.
+Twin of pointdreamer_tpu's core/io.py without PIL or cv2.  PNGs are
+written with zlib + struct (8-bit, filter 0).  Every image the JAX
+package reads through PIL for its extensions (.png .jpg .jpeg .bmp .webp
+.ppm) is read here with the same uint8 pixels: PNG (every colour type and
+depth, palettes and tRNS, Adam7), binary and ASCII PPM/PGM (maxval 255),
+BMP (palettes, RLE, 16/24/32-bit), JPEG (baseline and progressive,
+`jpeg.py`) and WebP (lossy, lossless, alpha, the first frame of an
+animation: `webp.py`).  `load_rgb` / `load_rgba` are PIL's
+convert("RGB") / convert("RGBA").  Image writers take numpy arrays or
+torch tensors; a device tensor is quantized to uint8 on the device before
+the one host transfer.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from .jpeg import decode_jpeg
+from .webp import decode_webp
 
 # --------------------------------------------------------------------------
 # PLY
@@ -299,61 +302,154 @@ def encode_png(arr: np.ndarray, level: int = 1) -> bytes:
             + _chunk(b"IEND", b""))
 
 
-def _paeth(a, b, c):
-    p = a.astype(np.int16) + b - c
-    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-    return np.where((pa <= pb) & (pa <= pc), a,
-                    np.where(pb <= pc, b, c)).astype(np.uint8)
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+_PNG_SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# Adam7: (x0, y0, dx, dy) of each pass
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _unfilter(raw: bytes, rows: int, rowbytes: int, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters of one (sub-)image -> uint8 [rows,
+    rowbytes]."""
+    out = np.zeros((rows, rowbytes), np.uint8)
+    prev = bytes(rowbytes)
+    for y in range(rows):
+        o = y * (rowbytes + 1)
+        ft = raw[o]
+        line = np.frombuffer(raw, np.uint8, rowbytes, o + 1)
+        if ft == 0:
+            cur = line
+        elif ft == 1:                    # sub: a running sum per channel
+            pad = -rowbytes % bpp
+            x = np.concatenate([line, np.zeros(pad, np.uint8)]).reshape(
+                -1, bpp)
+            cur = (np.cumsum(x, 0, np.uint64) & 255).astype(
+                np.uint8).reshape(-1)[:rowbytes]
+        elif ft == 2:                    # up
+            cur = line + np.frombuffer(prev, np.uint8)
+        elif ft in (3, 4):               # average, paeth: sequential
+            b = bytearray(line.tobytes())
+            up = prev
+            for i in range(rowbytes):
+                a = b[i - bpp] if i >= bpp else 0
+                if ft == 3:
+                    b[i] = (b[i] + ((a + up[i]) >> 1)) & 255
+                else:
+                    c = up[i - bpp] if i >= bpp else 0
+                    u = up[i]
+                    pa, pb, pc = abs(u - c), abs(a - c), abs(a + u - 2 * c)
+                    pred = a if pa <= pb and pa <= pc else u if pb <= pc \
+                        else c
+                    b[i] = (b[i] + pred) & 255
+            cur = np.frombuffer(bytes(b), np.uint8)
+        else:
+            raise ValueError(f"bad PNG filter {ft}")
+        out[y] = cur
+        prev = cur.tobytes()
+    return out
+
+
+def _png_samples(rows: np.ndarray, width: int, depth: int,
+                 samples: int) -> np.ndarray:
+    """Unfiltered rows -> sample values [h, width, samples] (int64; MSB
+    first below 8 bits, big-endian at 16)."""
+    h = rows.shape[0]
+    if depth == 16:
+        v = rows[:, :2 * width * samples].reshape(h, -1, 2).astype(np.int64)
+        return (v[..., 0] << 8 | v[..., 1]).reshape(h, width, samples)
+    if depth == 8:
+        return rows[:, :width * samples].reshape(h, width, samples).astype(
+            np.int64)
+    bits = np.unpackbits(rows, axis=1)[:, :width * depth]
+    weights = 1 << np.arange(depth - 1, -1, -1)
+    v = (bits.reshape(h, width, depth) * weights).sum(-1)
+    return v.reshape(h, width, 1).astype(np.int64)
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """8-bit non-interlaced PNG bytes -> uint8 [H,W,C]."""
+    """PNG bytes -> uint8 [H,W,C] as PIL's conversions give it: grey (C 1),
+    grey + alpha (2), RGB (3), RGBA (4).  Every colour type and bit depth,
+    Adam7 interlacing, all five filters.  Palettes are expanded through
+    PLTE; a tRNS chunk becomes an alpha channel (per palette entry, or a
+    grey or RGB key compared with the 8-bit values, as PIL's
+    convert("RGBA") does).  1, 2 and 4-bit grey scale by 255, 85 and 17;
+    16-bit colour keeps the high byte and 16-bit grey is clipped at 255
+    (PIL's I;16 -> RGB)."""
     if data[:8] != _PNG_SIG:
         raise ValueError("not a PNG")
-    pos, idat, hdr = 8, [], None
-    while pos < len(data):
+    pos, idat, hdr, plte, trns = 8, [], None, None, None
+    while pos + 8 <= len(data):
         (n,) = struct.unpack(">I", data[pos:pos + 4])
         tag = data[pos + 4:pos + 8]
         body = data[pos + 8:pos + 8 + n]
         pos += 12 + n
         if tag == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b"tRNS":
+            trns = body
         elif tag == b"IDAT":
             idat.append(body)
         elif tag == b"IEND":
             break
+    if hdr is None:
+        raise ValueError("PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = hdr
-    if depth != 8 or ctype not in _CHANNELS or interlace:
+    if ctype not in _PNG_DEPTHS or depth not in _PNG_DEPTHS[ctype] \
+            or interlace > 1:
         raise ValueError(f"unsupported PNG (depth {depth}, type {ctype}, "
                          f"interlace {interlace})")
-    c = _CHANNELS[ctype]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    raw = raw.reshape(h, 1 + w * c)
-    out = np.zeros((h, w * c), np.uint8)
-    prev = np.zeros(w * c, np.uint8)
-    for y in range(h):
-        ft, line = raw[y, 0], raw[y, 1:].copy()
-        if ft == 1:
-            for x in range(c, w * c, c):     # vectorized per pixel step
-                line[x:x + c] += line[x - c:x]
-        elif ft == 2:
-            line += prev
-        elif ft == 3:
-            for x in range(w * c):
-                left = int(line[x - c]) if x >= c else 0
-                line[x] = (int(line[x]) + ((left + int(prev[x])) >> 1)) & 255
-        elif ft == 4:
-            for x in range(w * c):
-                left = line[x - c] if x >= c else np.uint8(0)
-                ul = prev[x - c] if x >= c else np.uint8(0)
-                line[x] = line[x] + _paeth(np.asarray(left),
-                                           np.asarray(prev[x]),
-                                           np.asarray(ul))
-        elif ft != 0:
-            raise ValueError(f"bad PNG filter {ft}")
-        out[y] = line
-        prev = line
-    return out.reshape(h, w, c)
+    if ctype == 3 and plte is None:
+        raise ValueError("palette PNG without PLTE")
+    c = _PNG_SAMPLES[ctype]
+    bpp = max(1, c * depth // 8)
+    raw = zlib.decompress(b"".join(idat))
+    if not interlace:
+        rowbytes = (w * c * depth + 7) // 8
+        need = h * (rowbytes + 1)
+        if len(raw) < need:
+            raise ValueError("PNG: truncated image data")
+        v = _png_samples(_unfilter(raw, h, rowbytes, bpp), w, depth, c)
+    else:
+        v = np.zeros((h, w, c), np.int64)
+        o = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue
+            rowbytes = (pw * c * depth + 7) // 8
+            n = ph * (rowbytes + 1)
+            if len(raw) < o + n:
+                raise ValueError("PNG: truncated image data")
+            v[y0::dy, x0::dx] = _png_samples(
+                _unfilter(raw[o:o + n], ph, rowbytes, bpp), pw, depth, c)
+            o += n
+    if ctype == 3:
+        idx = v[..., 0]
+        pal = np.zeros((256, 3), np.uint8)
+        pal[:len(plte)] = plte[:256]
+        out = pal[idx]
+        if trns is not None:
+            alpha = np.full(256, 255, np.uint8)
+            alpha[:len(trns)] = np.frombuffer(trns, np.uint8)[:256]
+            out = np.concatenate([out, alpha[idx][..., None]], -1)
+        return out
+    if depth < 8:
+        out = (v * {1: 255, 2: 85, 4: 17}[depth]).astype(np.uint8)
+    elif depth == 16 and ctype == 0:
+        out = np.minimum(v, 255).astype(np.uint8)
+    elif depth == 16:
+        out = (v >> 8).astype(np.uint8)
+    else:
+        out = v.astype(np.uint8)
+    if trns is not None and ctype in (0, 2):
+        key = np.array(struct.unpack(f">{c}H", trns[:2 * c]), np.int64)
+        alpha = np.where((out.astype(np.int64) == key).all(-1), 0, 255)
+        out = np.concatenate([out, alpha[..., None].astype(np.uint8)], -1)
+    return out
 
 
 def to_uint8(img) -> np.ndarray:
@@ -417,40 +513,199 @@ def decode_pnm(data: bytes) -> np.ndarray:
     return a.reshape(h, w, c).copy()
 
 
+# 32-bit BI_BITFIELDS masks (r, g, b, a) PIL reads, and their channel
+# order from the low byte up
+_BMP_MASKS32 = {
+    (0xFF0000, 0xFF00, 0xFF, 0x0): "BGRX",
+    (0xFF000000, 0xFF0000, 0xFF00, 0x0): "XBGR",
+    (0xFF000000, 0xFF00, 0xFF, 0x0): "BGXR",
+    (0xFF000000, 0xFF0000, 0xFF00, 0xFF): "ABGR",
+    (0xFF, 0xFF00, 0xFF0000, 0xFF000000): "RGBA",
+    (0xFF0000, 0xFF00, 0xFF, 0xFF000000): "BGRA",
+    (0xFF000000, 0xFF00, 0xFF, 0xFF0000): "BGAR",
+    (0x0, 0x0, 0x0, 0x0): "BGRA",
+}
+
+
+def _bmp_rle(data: bytes, pos: int, w: int, h: int, rle4: bool) -> bytes:
+    """PIL's BmpRleDecoder, step for step (its delta escape skips two bytes
+    before reading the offsets; absolute runs of RLE4 keep whole bytes;
+    the word alignment follows the file offset)."""
+    out = bytearray()
+    x = 0
+    n = len(data)
+    while len(out) < w * h:
+        if pos + 2 > n:
+            break
+        num, byte = data[pos], data[pos + 1]
+        pos += 2
+        if num:
+            if x + num > w:
+                num = max(0, w - x)
+            if rle4:
+                pair = bytes((byte >> 4, byte & 15))
+                out += (pair * ((num + 1) // 2))[:num]
+            else:
+                out += bytes((byte,)) * num
+            x += num
+        elif byte == 0:                          # end of line
+            out += bytes(-len(out) % w)
+            x = 0
+        elif byte == 1:                          # end of bitmap
+            break
+        elif byte == 2:                          # delta
+            if pos + 2 > n:
+                break
+            pos += 2
+            if pos + 2 > n:
+                raise ValueError("BMP: truncated RLE delta")
+            right, up = data[pos], data[pos + 1]
+            pos += 2
+            out += bytes(right + up * w)
+            x = len(out) % w
+        else:                                    # absolute run
+            count = byte // 2 if rle4 else byte
+            chunk = data[pos:pos + count]
+            pos += len(chunk)
+            if rle4:
+                for b in chunk:
+                    out += bytes((b >> 4, b & 15))
+            else:
+                out += chunk
+            if len(chunk) < count:
+                break
+            x += byte
+            if pos % 2:
+                pos += 1
+    if len(out) < w * h:
+        raise ValueError("BMP: not enough image data")
+    return bytes(out[:w * h])
+
+
 def decode_bmp(data: bytes) -> np.ndarray:
-    """Uncompressed (BI_RGB / BI_BITFIELDS in BGRA order) 24- or 32-bit BMP
-    bytes -> uint8 [H,W,3], row 0 at the top."""
+    """BMP bytes -> uint8 [H,W,3] (or [H,W,4] for the 32-bit bit-field
+    layouts with alpha), row 0 at the top, as PIL reads them: 1, 4 and
+    8-bit palettes, RLE8 and RLE4, 16-bit 5-5-5 and 5-6-5, 24 and 32-bit
+    (alpha dropped unless bit fields name it); core (OS/2) and info
+    headers."""
     if data[:2] != b"BM":
         raise ValueError("not a BMP")
-    offset, = struct.unpack_from("<I", data, 10)
-    w, h, _, bpp, comp = struct.unpack_from("<iiHHI", data, 18)
-    if bpp not in (24, 32) or comp not in (0, 3):
-        raise ValueError(f"unsupported BMP ({bpp} bits, compression {comp})")
-    c = bpp // 8
-    stride = (w * c + 3) // 4 * 4
-    rows = np.frombuffer(data, np.uint8, abs(h) * stride, offset)
-    a = rows.reshape(abs(h), stride)[:, :w * c].reshape(abs(h), w, c)
-    a = a[..., 2::-1]                          # BGR(A) -> RGB
-    return np.ascontiguousarray(a[::-1] if h > 0 else a)
+    offset, hsize = struct.unpack_from("<II", data, 10)
+    hp = 18
+    if hsize == 12:
+        w, h, _, bpp = struct.unpack_from("<HHHH", data, hp)
+        comp, colors, pal_pad, flip = 0, 0, 3, False
+        masks_end = hp + 8
+    elif hsize in (40, 52, 56, 64, 108, 124):
+        flip = data[hp + 7] == 0xFF
+        w, = struct.unpack_from("<i", data, hp)
+        hraw, = struct.unpack_from("<I", data, hp + 4)
+        h = 2 ** 32 - hraw if flip else hraw
+        _, bpp, comp = struct.unpack_from("<HHI", data, hp + 8)
+        colors, = struct.unpack_from("<I", data, hp + 28)
+        pal_pad = 4
+        masks_end = 14 + hsize
+    else:
+        raise ValueError(f"unsupported BMP header ({hsize} bytes)")
+    if bpp not in (1, 4, 8, 16, 24, 32):
+        raise ValueError(f"unsupported BMP pixel depth ({bpp})")
+    colors = colors or (1 << bpp)
+    if offset == 14 + hsize and bpp <= 8:
+        offset += 4 * colors
+    raw_mode = {1: "P", 4: "P", 8: "P", 16: "BGR;15", 24: "BGR",
+                32: "BGRX"}[bpp]
+    if comp == 3:                                # BI_BITFIELDS
+        if hsize >= 52:
+            masks = struct.unpack_from("<IIII", data, hp + 36)
+            if hsize < 56:
+                masks = masks[:3] + (0,)
+        else:
+            masks = struct.unpack_from("<III", data, masks_end) + (0,)
+            masks_end += 12
+        if bpp == 32 and masks in _BMP_MASKS32:
+            raw_mode = _BMP_MASKS32[masks]
+        elif bpp == 24 and masks[:3] == (0xFF0000, 0xFF00, 0xFF):
+            raw_mode = "BGR"
+        elif bpp == 16 and masks[:3] == (0xF800, 0x7E0, 0x1F):
+            raw_mode = "BGR;16"
+        elif bpp == 16 and masks[:3] == (0x7C00, 0x3E0, 0x1F):
+            raw_mode = "BGR;15"
+        else:
+            raise ValueError("unsupported BMP bit-field layout")
+    elif comp not in (0, 1, 2):
+        raise ValueError(f"unsupported BMP compression ({comp})")
+    pal = None
+    stride = ((w * bpp + 31) >> 3) & ~3
+    if raw_mode == "P":
+        if not 0 < colors <= 65536:
+            raise ValueError(f"unsupported BMP palette size ({colors})")
+        p = np.frombuffer(data, np.uint8, pal_pad * colors, masks_end)
+        p = p.reshape(colors, pal_pad)[:, 2::-1]
+        grey = (0, 255) if colors == 2 else range(colors)
+        if all((p[i] == v).all() for i, v in enumerate(grey)) \
+                and comp == 0:
+            # PIL drops a grey palette and reads the raster as "1" (two
+            # colours) or "L", whatever the depth: rows still `stride`
+            # apart, zeros past the end
+            rb = 1 if colors == 2 else 8
+            need = (w * rb + 7) // 8
+            buf = data[offset:offset + (h - 1) * stride + need]
+            buf = np.frombuffer(buf + bytes((h - 1) * stride + need
+                                            - len(buf)), np.uint8)
+            rows = np.stack([buf[r * stride:r * stride + need]
+                             for r in range(h)])
+            if rb == 1:
+                rows = np.unpackbits(rows, axis=1)[:, :w] * 255
+            img = np.repeat(rows[:, :w, None], 3, -1).astype(np.uint8)
+            return np.ascontiguousarray(img if flip else img[::-1])
+        pal = np.zeros((max(256, colors), 3), np.uint8)
+        pal[:colors] = p
+    if comp in (1, 2):                           # RLE8, RLE4
+        idx = np.frombuffer(_bmp_rle(data, offset, w, h, comp == 2),
+                            np.uint8).reshape(h, w)
+    else:
+        rows = np.frombuffer(data, np.uint8, h * stride, offset).reshape(
+            h, stride)
+        if bpp < 8:
+            bits = np.unpackbits(rows, axis=1)[:, :w * bpp].reshape(h, w, bpp)
+            idx = (bits * (1 << np.arange(bpp - 1, -1, -1))).sum(-1)
+        elif bpp == 8:
+            idx = rows[:, :w]
+        elif bpp == 16:
+            v = rows[:, :2 * w].reshape(h, w, 2).astype(np.int64)
+            v = v[..., 0] | (v[..., 1] << 8)
+            if raw_mode == "BGR;16":
+                r, g, b = (v >> 11) & 31, (v >> 5) & 63, v & 31
+                idx = np.stack([r * 255 // 31, g * 255 // 63,
+                                b * 255 // 31], -1)
+            else:
+                r, g, b = (v >> 10) & 31, (v >> 5) & 31, v & 31
+                idx = np.stack([r * 255 // 31, g * 255 // 31,
+                                b * 255 // 31], -1)
+            idx = idx.astype(np.uint8)
+        else:
+            c = bpp // 8
+            px = rows[:, :w * c].reshape(h, w, c)
+            order = raw_mode
+            chans = [px[..., order.index(k)] for k in "RGB"]
+            if "A" in order:
+                chans.append(px[..., order.index("A")])
+            idx = np.stack(chans, -1)
+    img = pal[idx.astype(np.int64)] if pal is not None else idx
+    return np.ascontiguousarray(img if flip else img[::-1])
 
 
 _DECODERS = {".png": decode_png, ".ppm": decode_pnm, ".pgm": decode_pnm,
              ".pnm": decode_pnm, ".bmp": decode_bmp, ".jpg": decode_jpeg,
-             ".jpeg": decode_jpeg}
-UNSUPPORTED_IMAGES = (".webp",)
+             ".jpeg": decode_jpeg, ".webp": decode_webp}
 
 
 def load_image(path: str) -> np.ndarray:
-    """A PNG, PPM/PGM, uncompressed BMP or baseline JPEG (`jpeg.py`,
-    libjpeg-turbo's decode bit for bit) -> uint8 [H,W,C] as stored.  WebP
-    raises NotImplementedError: the port has no VP8 decoder (ROADMAP Queue
-    A item 9)."""
+    """A PNG, PPM/PGM, BMP, JPEG (baseline or progressive, `jpeg.py`) or
+    WebP (`webp.py`) -> uint8 [H,W,C]: grey (C 1), grey + alpha (2), RGB
+    (3) or RGBA (4), palettes expanded, each bit for bit what PIL 12.1
+    decodes.  Where PIL fails, this raises."""
     ext = os.path.splitext(path)[1].lower()
-    if ext in UNSUPPORTED_IMAGES:
-        raise NotImplementedError(
-            f"{path}: {ext} images need a decoder the port does not have "
-            "(ROADMAP Queue A item 9: a VP8 decoder for WebP); convert "
-            "them to PNG, JPEG, PPM or BMP")
     if ext not in _DECODERS:
         raise ValueError(f"{path}: unknown image type {ext!r}")
     with open(path, "rb") as f:
@@ -470,6 +725,22 @@ def load_rgb(path: str) -> np.ndarray:
     """An image (`load_image`'s types) -> HWC float32 RGB in [0,1] (alpha
     dropped, gray expanded)."""
     return load_rgb_uint8(path).astype(np.float32) / 255.0
+
+
+def load_rgba_uint8(path: str) -> np.ndarray:
+    """`load_image` as RGBA uint8 [H,W,4]: PIL's `convert("RGBA")` (grey
+    expanded, alpha 255 where the image has none)."""
+    a = load_image(path)
+    c = a.shape[-1]
+    rgb = np.repeat(a[..., :1], 3, axis=-1) if c in (1, 2) else a[..., :3]
+    alpha = a[..., -1:] if c in (2, 4) else np.full(a.shape[:2] + (1,), 255,
+                                                    np.uint8)
+    return np.ascontiguousarray(np.concatenate([rgb, alpha], -1))
+
+
+def load_rgba(path: str) -> np.ndarray:
+    """An image (`load_image`'s types) -> HWC float32 RGBA in [0,1]."""
+    return load_rgba_uint8(path).astype(np.float32) / 255.0
 
 
 # --------------------------------------------------------------------------

@@ -1,10 +1,18 @@
-"""Baseline JPEG decoding in numpy, bit-equal to libjpeg-turbo's default
-decode (what PIL's `Image.open(...).convert("RGB")` returns):
+"""Baseline and progressive JPEG decoding in numpy, bit-equal to
+libjpeg-turbo's default decode (what PIL's `Image.open(...).convert("RGB")`
+returns):
 
 - baseline and extended sequential Huffman frames (SOF0 / SOF1), 8-bit,
   one (grey) or three (YCbCr; RGB when an Adobe marker says so)
   components, interleaved or one scan a component, restart intervals,
   partial MCUs at any size; APPn and COM segments skipped;
+- progressive Huffman frames (SOF2, jdphuff.c): DC first and refinement
+  scans, AC first scans with end-of-band runs, AC refinement scans with
+  their correction bits, one coefficient buffer across all scans and
+  restart intervals.  libjpeg-turbo reads a multi-scan file whole before
+  its output pass, so block smoothing (jdcoefct.c smoothing_ok) applies
+  only when some low-frequency coefficient still lacks bits after the
+  last scan; such a file raises NotImplementedError naming it;
 - the ISLOW integer IDCT of jidctint.c (13-bit constants, two passes, the
   post-IDCT range-limit table of jdmaster.c);
 - the fancy upsampling of jdsample.c: the h2v1 and h2v2 triangle filters
@@ -13,8 +21,8 @@ decode (what PIL's `Image.open(...).convert("RGB")` returns):
 - the fixed-point YCbCr -> RGB tables of jdcolor.c (SCALEBITS 16) with
   the range limit.
 
-Progressive, lossless, hierarchical and arithmetic-coded frames, 12-bit
-samples and CMYK raise NotImplementedError naming what they are.
+Lossless, hierarchical and arithmetic-coded frames, 12-bit samples and
+CMYK raise NotImplementedError naming what they are.
 
 The Huffman decode is a Python loop over symbols (a 16-bit lookup table
 a code table); dequantisation, IDCT, upsampling and colour conversion are
@@ -28,7 +36,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 _SOF_NAMES = {
-    0xC2: "progressive Huffman (SOF2)", 0xC3: "lossless Huffman (SOF3)",
+    0xC3: "lossless Huffman (SOF3)",
     0xC5: "differential sequential Huffman (SOF5)",
     0xC6: "differential progressive Huffman (SOF6)",
     0xC7: "differential lossless Huffman (SOF7)",
@@ -308,8 +316,9 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         if marker in _SOF_NAMES:
             raise NotImplementedError(
                 f"JPEG {_SOF_NAMES[marker]} frames are not supported: "
-                "baseline and extended sequential Huffman (SOF0/SOF1) only")
-        if marker in (0xC0, 0xC1):
+                "baseline, extended sequential and progressive Huffman "
+                "(SOF0/SOF1/SOF2) only")
+        if marker in (0xC0, 0xC1, 0xC2):
             prec, h, w, nc = struct.unpack_from(">BHHB", seg, 0)
             if prec != 8:
                 raise NotImplementedError(
@@ -337,8 +346,12 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 c["w"] = -(-w * c["h"] // hmax)
                 c["h_px"] = -(-h * c["v"] // vmax)
             frame = dict(h=h, w=w, comps=comps, hmax=hmax, vmax=vmax,
-                         mcux=mcux, mcuy=mcuy)
-            coefs = [([], []) for _ in comps]
+                         mcux=mcux, mcuy=mcuy, progressive=marker == 0xC2)
+            if frame["progressive"]:
+                coefs = [[0] * (c["bh"] * c["bw"] * 64) for c in comps]
+                frame["coef_bits"] = [[-1] * 64 for _ in comps]
+            else:
+                coefs = [([], []) for _ in comps]
         elif marker == 0xC4:                                 # DHT
             o = 0
             while o < len(seg):
@@ -368,27 +381,68 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         elif marker == 0xDA:                                 # SOS
             if frame is None:
                 raise ValueError("JPEG: a scan before the frame header")
-            pos = _scan(data, seg, pos, frame, huff, restart, coefs)
+            scan = _scan_progressive if frame["progressive"] else _scan
+            pos = scan(data, seg, pos, frame, huff, restart, coefs)
         # APPn, COM and anything else: skipped
     if frame is None:
         raise ValueError("JPEG: no frame")
-    return _finish(frame, coefs, qt, adobe_transform)
+    if frame["progressive"]:
+        if smoothing_applies(frame, qt):
+            raise NotImplementedError(
+                "JPEG: a progressive file whose scans leave low-frequency "
+                "coefficients incomplete, which libjpeg-turbo decodes with "
+                "block smoothing (jdcoefct.c): not supported")
+        dense = [np.asarray(c, np.int64) for c in coefs]
+    else:
+        dense = []
+        for c, (p, v) in zip(frame["comps"], coefs):
+            flat = np.zeros(c["bh"] * c["bw"] * 64, np.int64)
+            flat[np.asarray(p, np.int64)] = np.asarray(v, np.int64)
+            dense.append(flat)
+    return _finish(frame, dense, qt, adobe_transform)
 
 
-def _scan(data, seg, pos, frame, huff, restart, coefs) -> int:
+# natural-order positions of the DC and the first nine AC coefficients
+# (jdcoefct.c's Q01_POS .. Q30_POS)
+_SAVED = ZIGZAG[:10].tolist()
+
+
+def smoothing_applies(frame, qt) -> bool:
+    """jdcoefct.c smoothing_ok after the last scan: every component has a
+    quantisation table with the ten first coefficients nonzero and some DC
+    bits, and some component has a coefficient among zigzag 1..9 whose
+    bits are incomplete (its last scan's Al is not 0, or no scan had
+    it)."""
+    useful = False
+    for c, bits in zip(frame["comps"], frame["coef_bits"]):
+        q = qt.get(c["tq"])
+        if q is None or any(q[k] == 0 for k in _SAVED) or bits[0] < 0:
+            return False
+        useful |= any(b != 0 for b in bits[1:10])
+    return useful
+
+
+def _scan_header(seg, frame):
+    """(components as (index, DC table, AC table), Ss, Se, Ah, Al)."""
     ns = seg[0]
     by_id = {c["id"]: i for i, c in enumerate(frame["comps"])}
     sel = []
     for i in range(ns):
         cid, t = seg[1 + 2 * i], seg[2 + 2 * i]
+        if cid not in by_id:
+            raise ValueError(f"JPEG: a scan names component {cid}")
         sel.append((by_id[cid], t >> 4, t & 15))
-    ss, se = seg[1 + 2 * ns], seg[2 + 2 * ns]
-    if ss != 0 or se != 63:
-        raise NotImplementedError("JPEG: a spectral-selection scan "
-                                  f"({ss}..{se}) in a sequential frame")
+    ss, se, a = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
+    return sel, ss, se, a >> 4, a & 15
+
+
+def _scan_units(frame, sel):
+    """The data units of a scan, a list per MCU of (scan slot, block
+    index * 64): one component's blocks in raster order, or the
+    interleaved MCUs."""
     comps = frame["comps"]
-    units = []                   # per MCU: [(scan slot, block index)]
-    if ns == 1:
+    units = []
+    if len(sel) == 1:
         ci = sel[0][0]
         c = comps[ci]
         nbx, nby = -(-c["w"] // 8), -(-c["h_px"] // 8)
@@ -407,6 +461,15 @@ def _scan(data, seg, pos, frame, huff, restart, coefs) -> int:
                                 + mx * c["h"] + h
                             mcu.append((slot, b * 64))
                 units.append(mcu)
+    return units
+
+
+def _scan(data, seg, pos, frame, huff, restart, coefs) -> int:
+    sel, ss, se, _, _ = _scan_header(seg, frame)
+    if ss != 0 or se != 63:
+        raise NotImplementedError("JPEG: a spectral-selection scan "
+                                  f"({ss}..{se}) in a sequential frame")
+    units = _scan_units(frame, sel)
     segs, end = _segments(data, pos)
     per = restart or len(units)
     if len(segs) < -(-len(units) // per):
@@ -425,12 +488,179 @@ def _scan(data, seg, pos, frame, huff, restart, coefs) -> int:
     return end
 
 
+def _scan_progressive(data, seg, pos, frame, huff, restart, coefs) -> int:
+    """One scan of a progressive frame (jdphuff.c: decode_mcu_DC_first,
+    decode_mcu_DC_refine, decode_mcu_AC_first, decode_mcu_AC_refine) into
+    the frame's coefficient buffers (natural order)."""
+    sel, ss, se, ah, al = _scan_header(seg, frame)
+    if ss == 0:
+        if se != 0:
+            raise ValueError("JPEG: a progressive DC scan with AC terms")
+    elif len(sel) != 1 or se < ss or se > 63:
+        raise ValueError(f"JPEG: a bad progressive AC scan ({ss}..{se})")
+    if al > 13 or (ah and ah != al + 1):
+        raise ValueError(f"JPEG: bad successive approximation {ah}/{al}")
+    for ci, _, _ in sel:
+        bits = frame["coef_bits"][ci]
+        for k in range(ss, se + 1):
+            bits[k] = al
+    units = _scan_units(frame, sel)
+    segs, end = _segments(data, pos)
+    per = restart or len(units)
+    if len(segs) < -(-len(units) // per):
+        raise ValueError("JPEG: fewer restart intervals than MCUs need")
+    bufs = [coefs[ci] for ci, _, _ in sel]
+    if ss == 0:
+        luts = [huff.get((0, td)) for _, td, _ in sel]
+        if ah == 0 and any(t is None for t in luts):
+            raise ValueError("JPEG: a scan uses an undefined Huffman table")
+    else:
+        luts = [huff.get((1, sel[0][2]))]
+        if luts[0] is None:
+            raise ValueError("JPEG: a scan uses an undefined Huffman table")
+    for k in range(0, len(units), per):
+        flat = [u for mcu in units[k:k + per] for u in mcu]
+        a = np.frombuffer(segs[k // per] + b"\x00" * 4, np.uint8).astype(
+            np.int64)
+        win = ((a[:-2] << 16) | (a[1:-1] << 8) | a[2:]).tolist()
+        if ss == 0 and ah == 0:
+            _dc_first(win, flat, luts, bufs, al)
+        elif ss == 0:
+            _dc_refine(win, flat, bufs, al)
+        elif ah == 0:
+            _ac_first(win, flat, luts[0], bufs[0], ss, se, al)
+        else:
+            _ac_refine(win, flat, luts[0], bufs[0], ss, se, al)
+    return end
+
+
+def _dc_first(win, units, luts, bufs, al) -> None:
+    preds = [0] * len(luts)
+    p = 0
+    for slot, base in units:
+        look = luts[slot][(win[p >> 3] >> (8 - (p & 7))) & 0xFFFF]
+        if not look:
+            raise ValueError("JPEG: bad Huffman code")
+        p += look >> 8
+        s = look & 0xFF
+        diff = 0
+        if s:
+            diff = ((win[p >> 3] >> (8 - (p & 7))) & 0xFFFF) >> (16 - s)
+            p += s
+            if diff < 1 << (s - 1):
+                diff -= (1 << s) - 1
+        preds[slot] += diff
+        bufs[slot][base] = preds[slot] << al
+
+
+def _dc_refine(win, units, bufs, al) -> None:
+    p1 = 1 << al
+    p = 0
+    for slot, base in units:
+        if (win[p >> 3] >> (23 - (p & 7))) & 1:
+            bufs[slot][base] |= p1
+        p += 1
+
+
+def _ac_first(win, units, lut, buf, ss, se, al) -> None:
+    zz = ZIGZAG.tolist()
+    eobrun = 0
+    p = 0
+    for _, base in units:
+        if eobrun:
+            eobrun -= 1
+            continue
+        k = ss
+        while k <= se:
+            look = lut[(win[p >> 3] >> (8 - (p & 7))) & 0xFFFF]
+            if not look:
+                raise ValueError("JPEG: bad Huffman code")
+            p += look >> 8
+            rs = look & 0xFF
+            r, s = rs >> 4, rs & 15
+            if s:
+                k += r
+                if k > 63:
+                    raise ValueError("JPEG: coefficient index past 63")
+                v = ((win[p >> 3] >> (8 - (p & 7))) & 0xFFFF) >> (16 - s)
+                p += s
+                if v < 1 << (s - 1):
+                    v -= (1 << s) - 1
+                buf[base + zz[k]] = v << al
+            elif r == 15:
+                k += 15
+            else:
+                eobrun = 1 << r
+                if r:
+                    eobrun += ((win[p >> 3] >> (8 - (p & 7))) & 0xFFFF) \
+                        >> (16 - r)
+                    p += r
+                eobrun -= 1
+                break
+            k += 1
+
+
+def _ac_refine(win, units, lut, buf, ss, se, al) -> None:
+    zz = ZIGZAG.tolist()
+    p1, m1 = 1 << al, -1 << al
+    eobrun = 0
+    p = 0
+    for _, base in units:
+        k = ss
+        if eobrun == 0:
+            while k <= se:
+                look = lut[(win[p >> 3] >> (8 - (p & 7))) & 0xFFFF]
+                if not look:
+                    raise ValueError("JPEG: bad Huffman code")
+                p += look >> 8
+                rs = look & 0xFF
+                r, s = rs >> 4, rs & 15
+                if s:
+                    # s != 1 is a corrupt stream libjpeg warns about
+                    s = p1 if (win[p >> 3] >> (23 - (p & 7))) & 1 else m1
+                    p += 1
+                elif r != 15:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += ((win[p >> 3] >> (8 - (p & 7)))
+                                   & 0xFFFF) >> (16 - r)
+                        p += r
+                    break
+                # skip r zero coefficients, refining the nonzero ones
+                while k <= se:
+                    i = base + zz[k]
+                    c = buf[i]
+                    if c:
+                        if (win[p >> 3] >> (23 - (p & 7))) & 1 \
+                                and not c & p1:
+                            buf[i] = c + (p1 if c >= 0 else m1)
+                        p += 1
+                    else:
+                        r -= 1
+                        if r < 0:
+                            break
+                    k += 1
+                if s and k <= 63:
+                    buf[base + zz[k]] = s
+                k += 1
+        if eobrun > 0:
+            while k <= se:
+                i = base + zz[k]
+                c = buf[i]
+                if c:
+                    if (win[p >> 3] >> (23 - (p & 7))) & 1 and not c & p1:
+                        buf[i] = c + (p1 if c >= 0 else m1)
+                    p += 1
+                k += 1
+            eobrun -= 1
+
+
 def _finish(frame, coefs, qt, adobe_transform) -> np.ndarray:
     h, w = frame["h"], frame["w"]
     planes = []
-    for c, (p, v) in zip(frame["comps"], coefs):
-        flat = np.zeros(c["bh"] * c["bw"] * 64, np.int64)
-        flat[np.asarray(p, np.int64)] = np.asarray(v, np.int64)
+    for c, flat in zip(frame["comps"], coefs):
+        # libjpeg holds coefficients as 16-bit JCOEF
+        flat = flat.astype(np.int16).astype(np.int64)
         blocks = idct_islow(flat.reshape(-1, 64) * qt[c["tq"]])
         plane = blocks.reshape(c["bh"], c["bw"], 8, 8).transpose(
             0, 2, 1, 3).reshape(c["bh"] * 8, c["bw"] * 8)

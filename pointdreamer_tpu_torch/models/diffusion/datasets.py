@@ -13,10 +13,9 @@ numpy arrays (`ops/resample.py`, bit-equal to PIL's 8-bit resampling):
   :64-71;
 - CIFAR10: BILINEAR to the square, :49-50.
 
-Images are read through the port's `io.load_image` (PNG, PPM, BMP);
-`.jpg`, `.jpeg` and `.webp`, which the JAX package reads through PIL,
-raise NotImplementedError naming the file.  Batches come out NHWC float32
-in [0,1].
+Images are read through the port's `io.load_image`, which decodes every
+extension of IMG_EXTS (PNG, JPEG, BMP, WebP, PPM) to the pixels PIL
+gives.  Batches come out NHWC float32 in [0,1].
 """
 from __future__ import annotations
 
@@ -97,9 +96,6 @@ class ImageFolderDataset:
             self.files = self.files[:limit]
         if not self.files:
             raise FileNotFoundError(f"no images under {root!r}")
-        for f in self.files:
-            if f.lower().endswith(pio.UNSUPPORTED_IMAGES):
-                pio.load_image(f)                # raises, naming the file
         self.image_size = image_size
         self.preproc = _PREPROC.get(kind.upper(), center_crop_arr)
 

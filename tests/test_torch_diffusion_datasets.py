@@ -6,11 +6,13 @@ The JAX datasets preprocess through PIL; the port's numpy copy of PIL's
 8-bit resampling gives the same uint8 crops, bit for bit: ImageNet's BOX
 halving + BICUBIC + centre crop on 700x520 and 300x260 images, the fixed
 CelebA crop + BICUBIC on a 178x218 face, CIFAR10's BILINEAR, read from
-PNG, PPM and BMP.  `.jpg` files, which JAX reads through PIL, decode as
-PIL decodes them (io.decode_jpeg); `.webp` files are refused by name.
-ckpt_util runs over file:// URLs only."""
+PNG, PPM and BMP.  `.jpg` and `.webp` files, which JAX reads through PIL,
+decode as PIL decodes them (io.decode_jpeg, io.decode_webp); the BMP
+variants PIL reads (palettes, RLE, 16-bit, bit fields) read as PIL reads
+them.  ckpt_util runs over file:// URLs only."""
 import hashlib
 import os
+import struct
 
 import numpy as np
 import pytest
@@ -98,30 +100,145 @@ def test_ascii_ppm_and_gray_images_read_as_pil_reads_them(tmp_path):
 
 @pytest.mark.parametrize("ext", [".jpg", ".jpeg", ".webp"])
 def test_jpeg_and_webp_are_refused_by_name(ext, tmp_path):
-    # JPEG is read now (bit-equal to PIL, tests/test_torch_jpeg.py); WebP
-    # is still refused by name
+    # both are read now: the port's dataset equals the JAX package's, and
+    # the decode is PIL's (tests/test_torch_jpeg.py, test_torch_webp.py)
     root = _folder(tmp_path, {"a.png": (64, 64, 16)})
     bad = os.path.join(root, "z" + ext)
     Image.fromarray(_img(64, 64, 17)).save(bad)
-    assert len(JD.get_dataset("IMAGENET", root, image_size=32)) == 2
-    if ext != ".webp":
-        jd = JD.get_dataset("IMAGENET", root, image_size=32)
-        td = TD.get_dataset("IMAGENET", root, image_size=32)
-        assert td.files == jd.files
-        for i in range(2):
-            np.testing.assert_array_equal(td[i], jd[i])
-        np.testing.assert_array_equal(
-            tio.load_rgb_uint8(bad),
-            np.asarray(Image.open(bad).convert("RGB")))
-        return
-    # the JAX package reads it through PIL; the port names the file and
-    # the ROADMAP item instead of skipping it
-    with pytest.raises(NotImplementedError, match=r"z\%s.*JPEG" % ext):
-        TD.get_dataset("IMAGENET", root, image_size=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tio.load_rgb(bad)
-    # --limit leaves it out, as it leaves it unread in the JAX package
+    jd = JD.get_dataset("IMAGENET", root, image_size=32)
+    td = TD.get_dataset("IMAGENET", root, image_size=32)
+    assert len(jd) == 2 and td.files == jd.files
+    for i in range(2):
+        np.testing.assert_array_equal(td[i], jd[i])
+    np.testing.assert_array_equal(tio.load_rgb_uint8(bad),
+                                  np.asarray(Image.open(bad).convert("RGB")))
     assert len(TD.get_dataset("IMAGENET", root, image_size=32, limit=1)) == 1
+
+
+# ---- BMP variants: a small BMP writer for what PIL cannot write
+
+def _bmp(w, h, bpp, raster, comp=0, palette=None, masks=None, hsize=40,
+         topdown=False):
+    pal = b""
+    if palette is not None:
+        pal = b"".join(bytes((b, g, r)) + (b"" if hsize == 12 else b"\0")
+                       for r, g, b in palette)
+    if hsize == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bpp)
+    else:
+        info = struct.pack("<IiiHHIIiiII", hsize, w, -h if topdown else h,
+                           1, bpp, comp, len(raster), 2835, 2835, 0, 0)
+        if hsize > 40:
+            info += struct.pack("<IIII", *(masks or (0, 0, 0, 0))) \
+                + bytes(hsize - 56)
+    extra = struct.pack("<III", *masks[:3]) if hsize == 40 and masks \
+        else b""
+    off = 14 + len(info) + len(extra) + len(pal)
+    return b"BM" + struct.pack("<IHHI", off + len(raster), 0, 0, off) \
+        + info + extra + pal + raster
+
+
+def _bmp_rows(rows, bpp, topdown=False):
+    out = b""
+    for row in (rows if topdown else rows[::-1]):
+        if bpp >= 8:
+            b = np.asarray(row, np.uint8).tobytes()
+        else:
+            bits = (np.asarray(row)[:, None] >> np.arange(bpp - 1, -1, -1)) & 1
+            b = np.packbits(bits.reshape(-1).astype(np.uint8)).tobytes()
+        out += b + bytes(-len(b) % 4)
+    return out
+
+
+_RLE8 = bytes([5, 7, 0, 3, 1, 2, 3, 0, 5, 9, 0, 0,      # run, odd absolute
+               0, 4, 10, 11, 12, 13, 9, 200, 0, 0,
+               0, 2, 1, 1, 1, 3, 3, 4, 0, 0,           # delta
+               13, 77, 0, 1])
+_RLE4 = bytes([5, 0x7A, 0, 5, 0x12, 0x34, 0x50, 0, 3, 0x9F, 0, 0,
+               13, 0x1E, 0, 0, 0, 4, 0xAB, 0xCD, 9, 0x21, 0, 0]
+              + [13, 0x45, 0, 0] * 4 + [0, 1])
+
+
+def _bmp_case(case, rng):
+    w, h = 13, 7
+    if case.startswith(("pal", "grey")):
+        bpp = int(case.split("_")[1])
+        n = 1 << bpp
+        pal = rng.integers(0, 256, (n, 3)).tolist()
+        if case.startswith("grey"):
+            pal = [(0, 0, 0), (255, 255, 255)] if n == 2 else [
+                (i, i, i) for i in range(n)]
+        rows = rng.integers(0, n, (h, w)).tolist()
+        hsize = {"core": 12, "v5": 124}.get(case.split("_")[-1], 40)
+        top = case.endswith("top")
+        return _bmp(w, h, bpp, _bmp_rows(rows, bpp, top), palette=pal,
+                    hsize=hsize, topdown=top)
+    if case.startswith("rle"):
+        rle4 = case == "rle4"
+        pal = rng.integers(0, 256, (16 if rle4 else 256, 3)).tolist()
+        return _bmp(w, h, 4 if rle4 else 8, _RLE4 if rle4 else _RLE8,
+                    comp=2 if rle4 else 1, palette=pal)
+    if case.startswith("16"):
+        v = rng.integers(0, 1 << 16, (h, w))
+        raster = b"".join(r.astype("<u2").tobytes() + bytes(-2 * w % 4)
+                          for r in v[::-1])
+        masks = {"16_555": None, "16_565": (0xF800, 0x7E0, 0x1F, 0),
+                 "16_555bf": (0x7C00, 0x3E0, 0x1F, 0)}[case]
+        return _bmp(w, h, 16, raster, comp=3 if masks else 0, masks=masks)
+    v = rng.integers(0, 256, (h, w, 4)).astype(np.uint8)
+    if case == "24":
+        return _bmp(w, h, 24, b"".join(r[:, :3].tobytes() + bytes(-3 * w % 4)
+                                       for r in v[::-1]))
+    raster = b"".join(r.tobytes() for r in v[::-1])
+    masks = {"32": None, "32_bgra": (0xFF0000, 0xFF00, 0xFF, 0xFF000000),
+             "32_rgba": (0xFF, 0xFF00, 0xFF0000, 0xFF000000),
+             "32_bgrx": (0xFF0000, 0xFF00, 0xFF, 0)}[case]
+    return _bmp(w, h, 32, raster, comp=3 if masks else 0, masks=masks,
+                hsize=124 if masks else 40)
+
+
+@pytest.mark.parametrize("case", [
+    "pal_1", "pal_4", "pal_8", "pal_1_core", "pal_4_v5", "pal_8_top",
+    "grey_1", "grey_4", "grey_8", "rle8", "rle4", "16_555", "16_565",
+    "16_555bf", "24", "32", "32_bgra", "32_rgba", "32_bgrx"])
+def test_bmp_variants_read_as_pil_converts(case, tmp_path):
+    p = str(tmp_path / "a.bmp")
+    with open(p, "wb") as f:
+        f.write(_bmp_case(case, np.random.default_rng(len(case))))
+    im = Image.open(p)
+    np.testing.assert_array_equal(tio.load_rgb_uint8(p),
+                                  np.asarray(im.convert("RGB")))
+    np.testing.assert_array_equal(tio.load_rgba_uint8(p),
+                                  np.asarray(im.convert("RGBA")))
+
+
+def test_truncated_rle_raises_as_pil_does(tmp_path):
+    p = str(tmp_path / "a.bmp")
+    with open(p, "wb") as f:
+        f.write(_bmp(13, 7, 8, _RLE8[:12] + bytes([0, 1]), comp=1,
+                     palette=[(i, 0, 0) for i in range(256)]))
+    with pytest.raises(ValueError, match="not enough image data"):
+        Image.open(p).load()
+    with pytest.raises(ValueError, match="not enough image data"):
+        tio.load_image(p)
+
+
+def test_dataset_over_webp_and_progressive_jpeg_matches_jax(tmp_path):
+    root = tmp_path / "imgs"
+    os.makedirs(root)
+    img = _img(90, 75, 18)
+    Image.fromarray(img).save(root / "a.webp", quality=60)
+    Image.fromarray(img).save(root / "b.webp", lossless=True)
+    Image.fromarray(np.dstack([img, img[..., 0]])).save(root / "c.webp",
+                                                        quality=70)
+    Image.fromarray(img).save(root / "d.jpg", quality=80, progressive=True)
+    Image.fromarray(img[..., 1]).save(root / "e.png", bits=4)
+    for kind in ("LSUN", "CIFAR10"):
+        jd = JD.get_dataset(kind, str(root), image_size=32)
+        td = TD.get_dataset(kind, str(root), image_size=32)
+        assert td.files == jd.files and len(td) == 5
+        for i in range(5):
+            np.testing.assert_array_equal(td[i], jd[i])
 
 
 def test_missing_root_and_empty_folder(tmp_path):

@@ -64,7 +64,8 @@ def test_port_imports_nothing_forbidden():
                 "cli/ddnm_restore.py", "baselines/nksr.py",
                 "cli/nksr_baseline.py", "parallel/__init__.py",
                 "parallel/mesh.py", "parallel/dryrun.py", "data/sample.py",
-                "mesh.py", "vis.py", "jpeg.py"):
+                "mesh.py", "vis.py", "jpeg.py", "webp.py", "vp8.py",
+                "vp8l.py"):
         assert os.path.join("pointdreamer_tpu_torch", mod) in scanned
     for path in _port_sources():
         with open(path) as fh:

@@ -1,9 +1,10 @@
-"""PyTorch port, the baseline-JPEG decoder (jpeg.py, io.decode_jpeg)
-against PIL (libjpeg-turbo) on the CPU: PIL encodes, and the port's
-decode must be PIL's decode bit for bit.  Also the committed fixtures
-under tests/data/jpeg/ (which `chip_smoke.py` decodes on the machine
-without PIL) and the restore CLI over a folder of one JPEG against the
-JAX CLI."""
+"""PyTorch port, the JPEG decoder (jpeg.py, io.decode_jpeg; baseline and
+progressive) against PIL (libjpeg-turbo) on the CPU: PIL encodes, and the
+port's decode must be PIL's decode bit for bit.  Also the committed
+fixtures under tests/data/jpeg/ and tests/data/timing/ (which
+`chip_smoke.py` decodes on the machine without PIL) and the restore CLI
+over a folder of one JPEG against the JAX CLI."""
+import hashlib
 import io
 import os
 
@@ -18,6 +19,7 @@ from test_torch_ddnm_restore import STEPS, _same_outputs, tiny_models  # noqa
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                         "jpeg")
+TIMING = os.path.join(os.path.dirname(FIXTURES), "timing")
 
 # name: (width, height, grey, PIL save options)
 FIXTURE_SPECS = {
@@ -27,6 +29,14 @@ FIXTURE_SPECS = {
     "restart": (45, 37, False, dict(quality=75, subsampling=2,
                                     restart_marker_blocks=2)),
     "odd_422": (17, 23, False, dict(quality=50, subsampling=1)),
+    "prog_420": (64, 48, False, dict(quality=75, subsampling=2,
+                                     progressive=True)),
+    "prog_444": (40, 30, False, dict(quality=90, subsampling=0,
+                                     progressive=True)),
+    "prog_grey": (33, 21, True, dict(quality=75, progressive=True)),
+    "prog_restart": (45, 37, False, dict(quality=75, subsampling=2,
+                                         restart_marker_blocks=2,
+                                         progressive=True)),
 }
 
 
@@ -55,14 +65,31 @@ def _port(data: bytes) -> np.ndarray:
     return np.repeat(a, 3, -1) if a.shape[-1] == 1 else a
 
 
-def make_fixtures(root: str) -> None:
-    """Write each fixture's JPEG and PIL's decode of it as PNG."""
+def _timing_jpeg() -> bytes:
+    from test_torch_webp import photo
+
+    return _encode(photo(512, 384, 3), quality=80, progressive=True)
+
+
+def make_fixtures(root: str, timing_root=None) -> None:
+    """Write each fixture's JPEG and PIL's decode of it as PNG; with
+    `timing_root`, also the 512x384 progressive timing fixture and the
+    SHA-256 of PIL's decoded bytes."""
     os.makedirs(root, exist_ok=True)
     for k, (name, (w, h, grey, opts)) in enumerate(FIXTURE_SPECS.items()):
         data = _encode(_image(w, h, 100 + k, grey), **opts)
         with open(os.path.join(root, f"{name}.jpg"), "wb") as f:
             f.write(data)
         Image.fromarray(_pil(data)).save(os.path.join(root, f"{name}.png"))
+    if timing_root is not None:
+        os.makedirs(timing_root, exist_ok=True)
+        data = _timing_jpeg()
+        with open(os.path.join(timing_root, "jpeg_prog_512x384.jpg"),
+                  "wb") as f:
+            f.write(data)
+        with open(os.path.join(timing_root, "jpeg_prog_512x384.sha256"),
+                  "w") as f:
+            f.write(hashlib.sha256(_pil(data).tobytes()).hexdigest() + "\n")
 
 
 @pytest.mark.parametrize("w,h", [(17, 23), (64, 64), (333, 250)])
@@ -98,8 +125,10 @@ def test_decode_other_streams_bit_equal_to_pil(case):
 
 def test_unsupported_frames_raise_by_name(tmp_path):
     img = _image(24, 16, 3)
-    with pytest.raises(NotImplementedError, match="progressive"):
-        tjpeg.decode_jpeg(_encode(img, quality=75, progressive=True))
+    # progressive frames are read now: PIL's decode, bit for bit
+    prog = _encode(img, quality=75, progressive=True)
+    assert b"\xff\xc2" in prog
+    np.testing.assert_array_equal(_port(prog), _pil(prog))
     cmyk = io.BytesIO()
     Image.fromarray(img).convert("CMYK").save(cmyk, "JPEG")
     with pytest.raises(NotImplementedError, match="CMYK"):
@@ -118,6 +147,58 @@ def test_unsupported_frames_raise_by_name(tmp_path):
         tjpeg.decode_jpeg(bytes(twelve))
     with pytest.raises(ValueError, match="not a JPEG"):
         tjpeg.decode_jpeg(b"\x89PNG....")
+
+
+@pytest.mark.parametrize("w,h", [(17, 23), (64, 64), (333, 250)])
+@pytest.mark.parametrize("sub", [0, 1, 2])
+def test_progressive_is_bit_equal_to_pil(w, h, sub):
+    for q in (50, 75, 95) if (w, h) != (333, 250) else (75,):
+        data = _encode(_image(w, h, w + sub + q), quality=q,
+                       subsampling=sub, progressive=True)
+        assert b"\xff\xc2" in data
+        got = _port(data)
+        assert got.shape == (h, w, 3) and got.dtype == np.uint8
+        np.testing.assert_array_equal(got, _pil(data), err_msg=str(q))
+
+
+@pytest.mark.parametrize("case", ["grey", "restart", "restart_rows",
+                                  "optimized", "411", "tiny"])
+def test_progressive_other_streams_bit_equal_to_pil(case):
+    img = _image(45, 37, 8)
+    opts = dict(quality=75, progressive=True)
+    data = {
+        "grey": lambda: _encode(img[..., 0], **opts),
+        "restart": lambda: _encode(img, subsampling=2,
+                                   restart_marker_blocks=3, **opts),
+        "restart_rows": lambda: _encode(img, subsampling=1,
+                                        restart_marker_rows=1, **opts),
+        "optimized": lambda: _encode(img, optimize=True, **opts),
+        "411": lambda: _encode(img, subsampling="4:1:1", **opts),
+        "tiny": lambda: _encode(img[:2, :3], **opts),
+    }[case]()
+    np.testing.assert_array_equal(_port(data), _pil(data))
+
+
+def test_incomplete_progressive_raises_naming_block_smoothing():
+    # a file cut after its third scan: libjpeg-turbo smooths the blocks of
+    # such a file (jdcoefct.c), which the port does not do
+    data = _encode(_image(48, 40, 6), quality=75, progressive=True)
+    sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    assert len(sos) > 4
+    cut = data[:sos[3]] + b"\xff\xd9"
+    assert _pil(cut).shape == (40, 48, 3)
+    with pytest.raises(NotImplementedError, match="block smoothing"):
+        tjpeg.decode_jpeg(cut)
+    # the first (DC) scan alone: smoothing too (no AC bits are known)
+    with pytest.raises(NotImplementedError, match="block smoothing"):
+        tjpeg.decode_jpeg(data[:sos[1]] + b"\xff\xd9")
+
+
+def test_progressive_timing_fixture_hash():
+    got = tio.load_image(os.path.join(TIMING, "jpeg_prog_512x384.jpg"))
+    want = open(os.path.join(TIMING, "jpeg_prog_512x384.sha256")).read()
+    assert got.shape == (384, 512, 3)
+    assert hashlib.sha256(got.tobytes()).hexdigest() == want.strip()
 
 
 def test_idct_matches_the_float_dct():
@@ -139,7 +220,10 @@ def test_idct_matches_the_float_dct():
 
 def test_fixtures_decode_to_their_pil_pngs(tmp_path):
     # the committed files are what make_fixtures writes with this PIL
-    make_fixtures(str(tmp_path))
+    make_fixtures(str(tmp_path), str(tmp_path / "timing"))
+    for f in ("jpeg_prog_512x384.jpg", "jpeg_prog_512x384.sha256"):
+        assert open(os.path.join(TIMING, f), "rb").read() == open(
+            tmp_path / "timing" / f, "rb").read(), f
     total = 0
     for name in FIXTURE_SPECS:
         for ext in (".jpg", ".png"):
@@ -155,6 +239,7 @@ def test_fixtures_decode_to_their_pil_pngs(tmp_path):
 
 
 def test_load_image_registers_jpeg_and_refuses_webp(tmp_path):
+    # JPEG and WebP are both registered now: each reads as PIL reads it
     img = _image(20, 12, 5)
     for ext in (".jpg", ".jpeg", ".JPG"):
         p = str(tmp_path / ("a" + ext))
@@ -162,8 +247,12 @@ def test_load_image_registers_jpeg_and_refuses_webp(tmp_path):
         np.testing.assert_array_equal(tio.load_rgb_uint8(p),
                                       np.asarray(Image.open(p).convert(
                                           "RGB")))
-    with pytest.raises(NotImplementedError, match="VP8"):
-        tio.load_image(str(tmp_path / "a.webp"))
+    p = str(tmp_path / "a.webp")
+    Image.fromarray(img).save(p, "WEBP", quality=80)
+    np.testing.assert_array_equal(tio.load_image(p),
+                                  np.asarray(Image.open(p)))
+    np.testing.assert_array_equal(tio.load_rgb_uint8(p),
+                                  np.asarray(Image.open(p).convert("RGB")))
 
 
 def test_restore_cli_over_a_jpeg_folder_matches_jax(tiny_models, tmp_path,
