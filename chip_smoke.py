@@ -234,6 +234,28 @@ Phases (each prints its own lines; any failure exits non-zero):
                 progressive JPEG): the median host seconds of 3 decodes
                 and the SHA-256 of the decoded bytes against the committed
                 one; the host CPU's model.
+ 14. inputs   : what the JAX package reads through PIL and PyYAML that the
+     by         port refused before (config.py, io.py's sniffing and modes,
+     content    jpeg.py's CMYK / YCCK, arithmetic, lossless and smoothed
+                frames, gif.py, tiff.py; host code).  (a) every JPEG, GIF,
+                TIFF and PNG fixture of this phase against its committed
+                PIL decode, bit for bit; host seconds by detected type.
+                (b) cli/ddnm_restore over a folder of 8 of them (CMYK,
+                YCCK, arithmetic, arithmetic progressive, smoothed
+                progressive, lossless RGB and grey JPEG, a PNG named
+                .JPEG), as phase 13 (b): sr4, batch 8, 100 steps, the
+                seeded random 552.8M bf16 UNet, the fed batch equal to
+                the one built from the PNG decodes, K2 = 1600; then
+                --image on a 256x256 LZW TIFF and on a 256x256 GIF, each
+                fed image equal to its PNG decode, K2 = 1600 each.  (c)
+                save_config -> load_config of phase 4's config equal; the
+                committed config the JAX package's save_config wrote
+                (block-style lists) read equal and written back byte for
+                byte.  (d) morph_close (exact), bilateral_filter (1e-5)
+                and ndc_to_pixels (exact) on CUDA tensors against the CPU,
+                with their CUDA-event ms.  (e) the 512x384 LZW TIFF, GIF
+                and arithmetic-JPEG timing fixtures: median host seconds
+                of 3 decodes, the SHA-256 against the committed one.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -3128,6 +3150,262 @@ def image_input_phase(dev, work: str, steps: int = 100,
             fail(f"{f}: decoded bytes {digest}, committed {want}")
 
 
+# ---- phase 14: inputs by content (configs, JPEG variants, GIF, TIFF) -----
+
+# the restore folder's 8 fixtures: (directory under tests/data, name, ext)
+RESTORE14_FIXTURES = (("jpeg", "cmyk", ".jpg"), ("jpeg", "ycck", ".jpg"),
+                      ("jpeg", "arith", ".jpg"),
+                      ("jpeg", "arith_prog", ".jpg"),
+                      ("jpeg", "smooth", ".jpg"),
+                      ("jpeg", "lossless", ".jpg"),
+                      ("jpeg", "lossless_grey", ".jpg"),
+                      ("png", "png_named", ".JPEG"))
+# the JPEG fixtures of this phase (the others are phase 12 b's and 13's)
+JPEG14_FIXTURES = ("cmyk", "cmyk_no_adobe", "ycck", "arith", "arith_prog",
+                   "smooth", "smooth_dc", "lossless", "lossless_grey")
+
+
+def _restore_run(argv):
+    """ddnm_restore.main(argv) on the card with the dataset's batches and
+    the decoder's images recorded and the sampler timed: (fed [(names,
+    float images)], runs [(s, outputs)], wall s, launches)."""
+    import numpy as np
+    import torch
+
+    from pointdreamer_tpu_torch import io as pio
+    from pointdreamer_tpu_torch import kernels
+    from pointdreamer_tpu_torch.cli import ddnm_restore
+    from pointdreamer_tpu_torch.models.diffusion import datasets, svd_ops
+
+    fed, runs = [], []
+    plain_batches = datasets.ImageFolderDataset.batches
+    plain_sample = svd_ops.ddnm_plus_sample
+    plain_load_rgb = pio.load_rgb
+
+    def batches(self, batch_size):
+        for names, imgs in plain_batches(self, batch_size):
+            fed.append((names, imgs))
+            yield names, imgs
+
+    def load_rgb(path):
+        img = plain_load_rgb(path)
+        fed.append(([path], np.asarray(img)[None]))
+        return img
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = plain_sample(*a, **k)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, y))
+        return y
+
+    datasets.ImageFolderDataset.batches = batches
+    svd_ops.ddnm_plus_sample = timed
+    pio.load_rgb = load_rgb
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        ddnm_restore.main(argv)
+    finally:
+        datasets.ImageFolderDataset.batches = plain_batches
+        svd_ops.ddnm_plus_sample = plain_sample
+        pio.load_rgb = plain_load_rgb
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return fed, runs, wall, dict(kernels.LAUNCHES)
+
+
+def _check_restore(what, runs, launches, n_images, steps, files, want):
+    import torch
+
+    ys = torch.cat([y for _, y in runs]) if runs else torch.zeros(0)
+    finite = bool(torch.isfinite(ys).all())
+    lo, hi = (float(ys.min()), float(ys.max())) if ys.numel() else (0, 0)
+    print(f"[inputs] {what}: sampler {sum(t for t, _ in runs):.3f} s over "
+          f"{len(runs)} batch(es); launches {json.dumps(launches)}; "
+          f"outputs {tuple(ys.shape)} finite {finite} in [{lo:.4f}, "
+          f"{hi:.4f}]; {len(files)} PNGs")
+    if launches.get("attention_qkv") != 16 * steps:
+        fail(f"{what}: K2 launched {launches.get('attention_qkv')} times, "
+             f"not {16 * steps}")
+    if not (ys.shape[0] == n_images and finite and lo >= 0 and hi <= 1):
+        fail(f"{what}: outputs {tuple(ys.shape)}, finite {finite}, range "
+             f"[{lo}, {hi}]")
+    if files != want:
+        fail(f"{what}: wrote {files}")
+
+
+def inputs_phase(dev, work: str, cfg, steps: int = 100,
+                 batch: int = 8) -> None:
+    """Phase 14: every new input fixture against its committed PIL decode;
+    the restore CLI over a folder of the JPEG variants and the PNG named
+    .JPEG, and on a 256x256 LZW TIFF and GIF; the config round trip; the
+    image operations on the card; the 512x384 timing fixtures."""
+    import dataclasses
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from pointdreamer_tpu_torch import camera as pcam
+    from pointdreamer_tpu_torch import config as pcfg
+    from pointdreamer_tpu_torch import io as pio
+    from pointdreamer_tpu_torch.models.diffusion import datasets
+    from pointdreamer_tpu_torch.ops import image as pimg
+
+    data = os.path.join(REPO, "tests", "data")
+    # (a) the fixtures, bit for bit: JPEG through convert("RGB") (its PNGs
+    # hold that), GIF, TIFF and the PNG named .JPEG through load_image
+    fixtures = [("jpeg", n + ".jpg", pio.load_rgb_uint8)
+                for n in JPEG14_FIXTURES]
+    for sub in ("gif", "tiff"):
+        fixtures += [(sub, f, pio.load_image) for f in sorted(os.listdir(
+            os.path.join(data, sub))) if not f.endswith(".png")]
+    fixtures.append(("png", "png_named.JPEG", pio.load_image))
+    secs, counts = {}, {}
+    for sub, f, load in fixtures:
+        path = os.path.join(data, sub, f)
+        with open(path, "rb") as fh:
+            kind = pio.image_type(fh.read(16))
+        t0 = time.perf_counter()
+        got = load(path)
+        secs[kind] = secs.get(kind, 0.0) + time.perf_counter() - t0
+        counts[kind] = counts.get(kind, 0) + 1
+        want = pio.load_png(os.path.splitext(path)[0] + ".png")
+        if not (got.size == want.size and (got == want.reshape(
+                got.shape)).all()):
+            fail(f"input fixture {sub}/{f}: the decode is not PIL's")
+    print("[inputs] " + ", ".join(
+        f"{counts[k]} {k} in {secs[k]:.3f} s" for k in sorted(secs))
+        + " (host), each bit-equal to its committed PIL decode")
+    if counts.get("GIF", 0) < 5 or counts.get("TIFF", 0) < 13 \
+            or counts.get("JPEG", 0) < 9 or counts.get("PNG") != 1:
+        fail(f"input fixtures: {counts}")
+
+    # (b) the restore CLI: a folder of 8, then --image on a TIFF and a GIF
+    src = os.path.join(work, "phase14_in")
+    os.makedirs(src, exist_ok=True)
+    for sub, name, ext in RESTORE14_FIXTURES:
+        shutil.copy(os.path.join(data, sub, name + ext),
+                    os.path.join(src, name + ext))
+    out = os.path.join(work, "phase14_out")
+    fed, runs, wall, launches = _restore_run(
+        ["--image_dir", src, "--dataset", "IMAGENET", "--deg", "sr4",
+         "--batch", str(batch), "--steps", str(steps), "--out", out])
+    pngs = {name: os.path.join(data, sub, name + ".png")
+            for sub, name, _ in RESTORE14_FIXTURES}
+    same = bool(fed)
+    for names, imgs in fed:
+        want = np.stack([datasets.center_crop_arr(pio.load_rgb_uint8(
+            pngs[os.path.splitext(os.path.basename(n))[0]]), 256).astype(
+            np.float32) / 255.0 for n in names])
+        same &= imgs.shape == want.shape and bool((imgs == want).all())
+    print(f"[inputs] ddnm_restore --image_dir over {len(pngs)} fixtures "
+          "(CMYK, YCCK, arithmetic, arithmetic progressive, smoothed "
+          "progressive, lossless RGB and grey JPEG, a PNG named .JPEG), "
+          f"IMAGENET, sr4, batch {batch}, {steps} steps: {wall:.3f} s; fed "
+          f"batch equal to the PNG-decoded batch: {same}")
+    if not same:
+        fail("restore: the dataset's batch differs from the batch of the "
+             "committed PNG decodes")
+    _check_restore("folder", runs, launches, len(pngs), steps,
+                   sorted(os.listdir(out)) if os.path.isdir(out) else [],
+                   sorted(f"{n}{s}.png" for n in pngs
+                          for s in ("", "_degraded")))
+    for sub, f in (("tiff", "restore_256_lzw.tif"),
+                   ("gif", "restore_256.gif")):
+        path = os.path.join(data, sub, f)
+        out_png = os.path.join(work, f"phase14_{sub}", "out.png")
+        os.makedirs(os.path.dirname(out_png), exist_ok=True)
+        fed, runs, wall, launches = _restore_run(
+            ["--image", path, "--dataset", "IMAGENET", "--deg", "sr4",
+             "--steps", str(steps), "--out", out_png])
+        want = pio.load_png(os.path.splitext(path)[0] + ".png")[..., :3]
+        want = want.astype(np.float32)[None] / 255.0
+        same = len(fed) == 1 and fed[0][1].shape == want.shape and bool(
+            (fed[0][1] == want).all())
+        print(f"[inputs] ddnm_restore --image {f} (256x256), sr4, {steps} "
+              f"steps: {wall:.3f} s; fed image equal to its PNG decode: "
+              f"{same}")
+        if not same:
+            fail(f"restore --image {f}: the fed image differs from its "
+                 "committed PNG decode")
+        _check_restore(f, runs, launches, 1, steps,
+                       sorted(os.listdir(os.path.dirname(out_png))),
+                       ["out.png", "out_degraded.png"])
+
+    # (c) the config round trip, and a file the JAX package wrote
+    path = os.path.join(work, "phase14_config.yaml")
+    pcfg.save_config(cfg, path)
+    back = pcfg.load_config(path)
+    saved = os.path.join(data, "config", "jax_saved.yaml")
+    want = dataclasses.replace(
+        pcfg.load_config(os.path.join(REPO, "configs", "default.yaml")),
+        edge_dilate_kernels=[21, 11, 5], exp_name="saved by save_config")
+    jax_saved = pcfg.load_config(saved)
+    again = os.path.join(work, "phase14_jax_saved.yaml")
+    pcfg.save_config(jax_saved, again)
+    with open(saved) as a, open(again) as b:
+        same_text = a.read() == b.read()
+    ok = (dataclasses.asdict(back) == dataclasses.asdict(cfg)
+          and dataclasses.asdict(jax_saved) == dataclasses.asdict(want)
+          and same_text)
+    print(f"[inputs] save_config -> load_config of phase 4's config: "
+          f"{dataclasses.asdict(back) == dataclasses.asdict(cfg)}; the "
+          "JAX package's saved config (block-style lists) read: "
+          f"{dataclasses.asdict(jax_saved) == dataclasses.asdict(want)}, "
+          f"written back byte-equal: {same_text}")
+    if not ok:
+        fail("config: a round trip differs")
+
+    # (d) the image operations on the card against the CPU
+    gen = torch.Generator().manual_seed(14)
+    mask = (torch.rand(8, 512, 512, generator=gen) < 0.7).float()
+    img = torch.rand(8, 256, 256, 3, generator=gen)
+    ndc = torch.rand(8, 100_000, 2, generator=gen) * 2.4 - 1.2
+    close_cpu = pimg.morph_close(mask, 7)
+    bil_cpu = pimg.bilateral_filter(img, 5)
+    pix_cpu = pcam.ndc_to_pixels(ndc, 512)
+    mask_d, img_d, ndc_d = mask.to(dev), img.to(dev), ndc.to(dev)
+    close_d = pimg.morph_close(mask_d, 7)
+    bil_d = pimg.bilateral_filter(img_d, 5)
+    pix_d = pcam.ndc_to_pixels(ndc_d, 512)
+    close_same = bool((close_d.cpu() == close_cpu).all())
+    bil_err = float((bil_d.cpu() - bil_cpu).abs().max())
+    pix_same = bool((pix_d.cpu() == pix_cpu).all())
+    close_ms = cuda_ms(lambda: pimg.morph_close(mask_d, 7))
+    bil_ms = cuda_ms(lambda: pimg.bilateral_filter(img_d, 5))
+    print(f"[inputs] morph_close k 7 on 8x512^2 (card == CPU: {close_same}; "
+          f"{close_ms:.4f} ms), bilateral_filter k 5 on 8x256^2x3 (max "
+          f"|card - CPU| {bil_err:.3e}, bound 1e-5; {bil_ms:.4f} ms), "
+          f"ndc_to_pixels of 8x100,000 points (card == CPU: {pix_same})")
+    if not (close_same and bil_err <= 1e-5 and pix_same):
+        fail("image operations: the card differs from the CPU")
+
+    # (e) the 512x384 timing fixtures of the new types
+    timing = os.path.join(data, "timing")
+    for f, what in (("tiff_lzw_512x384.tif", "LZW TIFF (tiff.py)"),
+                    ("gif_512x384.gif", "GIF (gif.py)"),
+                    ("jpeg_arith_512x384.jpg",
+                     "arithmetic JPEG (jpeg.py)")):
+        path = os.path.join(timing, f)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = pio.load_image(path)
+            times.append(time.perf_counter() - t0)
+        digest = hashlib.sha256(got.tobytes()).hexdigest()
+        with open(os.path.splitext(path)[0] + ".sha256") as fh:
+            want = fh.read().strip()
+        print(f"[inputs] {f} {got.shape}: {what} decode "
+              f"{sorted(times)[1]:.4f} s (median of 3, host CPU "
+              f"{host_cpu_model()}); SHA-256 "
+              f"{'matches' if digest == want else 'DIFFERS'}")
+        if digest != want:
+            fail(f"{f}: decoded bytes {digest}, committed {want}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3558,6 +3836,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     image_input_phase(dev, work)
     print(f"[image input] phase 13 {time.perf_counter() - t13:.2f} s")
+
+    # ---- 14. inputs by content: configs, JPEG variants, GIF, TIFF -------
+    t14 = time.perf_counter()
+    torch.cuda.empty_cache()
+    inputs_phase(dev, work, cfg)
+    print(f"[inputs] phase 14 {time.perf_counter() - t14:.2f} s")
 
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -116,3 +116,11 @@ def make_camera_rig(num_views: int = 8, distance: float = 1.6,
     return CameraRig(eyes=f32(eyes), rot=f32(rots),
                      base_dirs=f32(eyes - at[None]), up_dirs=f32(ups),
                      tan_half_fov=float(math.tan(fov / 2.0)), res=res)
+
+
+def ndc_to_pixels(ndc_xy: torch.Tensor, res: int) -> torch.Tensor:
+    """NDC [-1, 1]^2 -> integer pixel (row, col) [..., 2] int32, clipped to
+    the image: (row, col) is (y, x), row 0 at the image top."""
+    pix = (ndc_xy.float() * 0.5 + 0.5) * res
+    pix = torch.clamp(pix, 0, res - 1).to(torch.int32)
+    return torch.stack([pix[..., 1], pix[..., 0]], dim=-1)

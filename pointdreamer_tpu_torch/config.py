@@ -3,10 +3,13 @@ core/config.py: the same dataclass with the same defaults).
 
 The port does not depend on PyYAML, so `load_config` reads the
 configs with a small parser for the flat subset that `configs/*.yaml`
-use: `key: value` lines, `# comments`, quoted and bare strings, YAML 1.1
-booleans, ints, floats, flow lists `[a, b]` and YAML nulls.  As under
-yaml.safe_load, the word `None` is a string, which `_coerce` turns into
-None exactly as the JAX loader does.
+use and that yaml.safe_dump writes for a PipelineConfig (so a config the
+JAX package's save_config wrote reads back equal): `key: value` lines,
+`# comments`, plain, single- and double-quoted strings, YAML 1.1
+booleans, ints, floats, nulls, flow lists `[a, b]` and block sequences of
+scalars.  As under yaml.safe_load, the word `None` is a string, which
+`_coerce` turns into None exactly as the JAX loader does.  `save_config`
+writes what the JAX package's writes.
 """
 from __future__ import annotations
 
@@ -110,14 +113,25 @@ class PipelineConfig:
 
 _FIELDS = {f.name: f for f in dataclasses.fields(PipelineConfig)}
 
-# YAML 1.1 scalar resolution (the subset PyYAML's safe loader applies)
+# YAML 1.1 scalar resolution, as PyYAML's safe loader applies it
 _NULL = {"~", "null", "Null", "NULL", ""}
-_TRUE = {"yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON",
-         "y", "Y"}
-_FALSE = {"no", "No", "NO", "false", "False", "FALSE", "off", "Off", "OFF",
-          "n", "N"}
+_TRUE = {"yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON"}
+_FALSE = {"no", "No", "NO", "false", "False", "FALSE", "off", "Off", "OFF"}
 _INT = re.compile(r"^[-+]?(0|[1-9][0-9_]*)$")
+_INT_OTHER = re.compile(r"^[-+]?(0b[01_]+|0[0-7_]+|0x[0-9a-fA-F_]+)$")
 _FLOAT = re.compile(r"^[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?$")
+_INF = re.compile(r"^[-+]?\.(inf|Inf|INF)$")
+_NAN = re.compile(r"^\.(nan|NaN|NAN)$")
+# what PyYAML resolves to a type no config field has, which this reader
+# refuses: sexagesimal numbers, timestamps, the merge and value keys
+_OTHER_TYPES = re.compile(
+    r"^([-+]?[0-9][0-9_]*(:[0-5]?[0-9])+(\.[0-9_]*)?"
+    r"|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}([Tt ].*)?|<<|=)$")
+_ESCAPES = {"0": "\0", "a": "\a", "b": "\b", "t": "\t", "\t": "\t",
+            "n": "\n", "v": "\v", "f": "\f", "r": "\r", "e": "\x1b",
+            " ": " ", '"': '"', "/": "/", "\\": "\\", "N": "\x85",
+            "_": "\xa0", "L": "\u2028", "P": "\u2029"}
+_HEX_ESCAPES = {"x": 2, "u": 4, "U": 8}
 
 
 def _strip_comment(line: str) -> str:
@@ -157,13 +171,46 @@ def _split_flow(body: str):
     return items
 
 
+def _single_quoted(t: str) -> str:
+    body = t[1:-1]
+    if "'" in body.replace("''", ""):
+        raise ValueError(f"unsupported YAML: {t!r}")
+    return body.replace("''", "'")
+
+
+def _double_quoted(t: str) -> str:
+    body, out, i = t[1:-1], [], 0
+    while i < len(body):
+        ch = body[i]
+        if ch == '"':
+            raise ValueError(f"unsupported YAML: {t!r}")
+        if ch != "\\":
+            out.append(ch)
+            i += 1
+            continue
+        e = body[i + 1:i + 2]
+        if e in _ESCAPES:
+            out.append(_ESCAPES[e])
+            i += 2
+        elif e in _HEX_ESCAPES:
+            n = _HEX_ESCAPES[e]
+            out.append(chr(int(body[i + 2:i + 2 + n], 16)))
+            i += 2 + n
+        else:
+            raise ValueError(f"unsupported YAML escape in {t!r}")
+    return "".join(out)
+
+
 def parse_scalar(text: str):
-    """One YAML 1.1 value of the subset the configs use."""
+    """One YAML 1.1 value of the subset the configs use: a scalar or a flow
+    list of scalars."""
     t = text.strip()
     if t.startswith("[") and t.endswith("]"):
         return [parse_scalar(x) for x in _split_flow(t[1:-1])]
-    if len(t) >= 2 and t[0] == t[-1] and t[0] in "'\"":
-        return t[1:-1]
+    if len(t) >= 2 and t[0] == t[-1] == "'":
+        return _single_quoted(t)
+    if len(t) >= 2 and t[0] == t[-1] == '"':
+        return _double_quoted(t)
     if t in _NULL:
         return None
     if t in _TRUE:
@@ -172,26 +219,186 @@ def parse_scalar(text: str):
         return False
     if _INT.match(t):
         return int(t.replace("_", ""))
+    if _INT_OTHER.match(t):
+        sign, digits = (-1, t[1:]) if t[0] == "-" else (1, t.lstrip("+"))
+        digits = digits.replace("_", "")
+        base = {"0b": 2, "0x": 16}.get(digits[:2], 8)
+        return sign * int(digits[2:] if base != 8 else digits, base)
     if _FLOAT.match(t) and any(c.isdigit() for c in t):
         return float(t.replace("_", ""))
-    if t in (".inf", ".Inf", ".INF", "+.inf"):
-        return float("inf")
-    if t in ("-.inf", "-.Inf", "-.INF"):
-        return float("-inf")
+    if _INF.match(t):
+        return float("-inf") if t[0] == "-" else float("inf")
+    if _NAN.match(t):
+        return float("nan")
+    if _OTHER_TYPES.match(t):
+        raise ValueError(f"unsupported YAML: {t!r} (a non-string type)")
+    if t[:1] in "[{&*!|>%@`\"'" or t in ("-", "?") or t[:2] in ("- ", "? "):
+        raise ValueError(f"unsupported YAML: {t!r}")
     return t
 
 
+def _fold(lines) -> str:
+    """Continuation lines of a scalar folded as YAML folds them: one space
+    between lines, an empty line a newline."""
+    out = lines[0]
+    for prev, ln in zip(lines, lines[1:]):
+        if not ln:
+            out += "\n"
+        elif prev:
+            out += " " + ln
+        else:
+            out += ln
+    return out
+
+
 def parse_yaml_subset(text: str) -> dict:
+    """A mapping of the YAML subset a config uses, and everything that
+    yaml.safe_dump writes for one: `key: value` lines of scalars (plain,
+    single- or double-quoted, folded over indented continuation lines)
+    and flow lists, `key:` followed by a block sequence of scalars (`-
+    item` lines at indent 0 or indented), `# comments`.  Anything else
+    raises naming its line."""
     out = {}
+    entries = []            # [line number, key, value lines, items, indent]
     for n, raw in enumerate(text.splitlines(), 1):
         line = _strip_comment(raw).rstrip()
-        if not line.strip() or line.strip() in ("---", "..."):
+        s = line.strip()
+        if not s:
+            if entries and entries[-1][2] and entries[-1][2][0][:1] in "'\"":
+                entries[-1][2].append("")       # a break in a quoted scalar
             continue
-        if line[0] in " \t" or ":" not in line:
+        if line == s and s in ("---", "..."):
+            continue
+        indent = len(line) - len(line.lstrip(" "))
+        if "\t" in line[:indent + 1]:
             raise ValueError(f"config line {n}: unsupported YAML: {raw!r}")
-        key, _, value = line.partition(":")
-        out[key.strip()] = parse_scalar(value)
+        cur = entries[-1] if entries else None
+        if s == "-" or s.startswith("- "):
+            item = s[1:].strip()
+            if cur is None or cur[2] or not item or (
+                    cur[3] and indent != cur[4]):
+                raise ValueError(f"config line {n}: unsupported YAML: "
+                                 f"{raw!r}")
+            if (item[0] not in "'\"" and ": " in item) or item[:1] in "-[{":
+                raise ValueError(f"config line {n}: unsupported YAML: "
+                                 f"{raw!r} (a sequence item that is not a "
+                                 "scalar)")
+            cur[3].append((n, raw, item))
+            cur[4] = indent
+        elif indent == 0:
+            key, sep, value = line.partition(":")
+            if not sep or (value and value[0] != " ") or not key.strip() \
+                    or key.strip()[0] in "'\"-?[{":
+                raise ValueError(f"config line {n}: unsupported YAML: "
+                                 f"{raw!r}")
+            entries.append([n, key.strip(), [value.strip()] if value.strip()
+                            else [], [], None])
+        elif cur is not None and cur[2] and not cur[3]:
+            cur[2].append(s)                    # a folded continuation
+        else:
+            raise ValueError(f"config line {n}: unsupported YAML: {raw!r}")
+    for n, key, value, items, _ in entries:
+        try:
+            if items:
+                out[key] = [parse_scalar(item) for _, _, item in items]
+                if any(isinstance(v, list) for v in out[key]):
+                    raise ValueError("a nested sequence")
+            else:
+                out[key] = parse_scalar(_fold(value) if value else "")
+        except ValueError as e:
+            raise ValueError(f"config line {n}: {e}") from None
     return out
+
+
+def _yaml_float(v: float) -> str:
+    """PyYAML's representer for a float."""
+    if v != v:
+        return ".nan"
+    if v in (float("inf"), float("-inf")):
+        return ".inf" if v > 0 else "-.inf"
+    text = repr(v).lower()
+    if "." not in text and "e" in text:
+        text = text.replace("e", ".0e", 1)
+    return text
+
+
+def _plain_ok(s: str) -> bool:
+    """Whether PyYAML's emitter writes `s` as a plain block scalar: it reads
+    back as the same string and holds no indicator, break, non-ASCII or
+    edge space."""
+    if not s or s[0] in " " or s[-1] in " " or s.startswith(("---", "...")):
+        return False
+    if any(not " " <= ch <= "~" for ch in s):
+        return False
+    for i, ch in enumerate(s):
+        followed = i + 1 == len(s) or s[i + 1] == " "
+        if i == 0 and (ch in "#,[]{}&*!|>'\"%@`"
+                       or (ch in "?:-" and followed)):
+            return False
+        if i and ((ch == ":" and followed) or (ch == "#" and s[i - 1] == " ")):
+            return False
+    try:
+        return parse_scalar(s) == s
+    except ValueError:
+        return False
+
+
+def _yaml_str(s: str) -> str:
+    if _plain_ok(s):
+        return s
+    if all(" " <= ch <= "~" for ch in s):
+        return "'" + s.replace("'", "''") + "'"
+    out = []
+    inverse = {v: k for k, v in _ESCAPES.items() if k not in " /\t"}
+    for ch in s:
+        if ch in inverse and ch != " ":
+            out.append("\\" + inverse[ch])
+        elif " " <= ch <= "~":
+            out.append(ch)
+        elif ord(ch) <= 0xFF:
+            out.append(f"\\x{ord(ch):02X}")
+        elif ord(ch) <= 0xFFFF:
+            out.append(f"\\u{ord(ch):04X}")
+        else:
+            out.append(f"\\U{ord(ch):08X}")
+    return '"' + "".join(out) + '"'
+
+
+def _yaml_scalar(v) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        return _yaml_float(v)
+    if isinstance(v, str):
+        return _yaml_str(v)
+    raise TypeError(f"config value {v!r}: not a scalar")
+
+
+def dump_yaml_subset(d: dict) -> str:
+    """What yaml.safe_dump(d, sort_keys=False) writes for a flat mapping of
+    scalars and lists of scalars: block sequences for non-empty lists,
+    `[]` for empty ones.  Strings that PyYAML would quote are
+    single-quoted, or double-quoted with escapes where they hold a line
+    break or a non-printable or non-ASCII character; PyYAML folds long
+    lines and breaks such strings over lines, which this does not do: both
+    read back equal."""
+    lines = []
+    for k, v in d.items():
+        if not _plain_ok(str(k)) or not isinstance(k, str):
+            raise ValueError(f"config key {k!r}")
+        if isinstance(v, (list, tuple)):
+            if not v:
+                lines.append(f"{k}: []")
+                continue
+            lines.append(f"{k}:")
+            lines.extend(f"- {_yaml_scalar(x)}" for x in v)
+        else:
+            lines.append(f"{k}: {_yaml_scalar(v)}")
+    return "".join(ln + "\n" for ln in lines)
 
 
 def _coerce(name: str, value):
@@ -222,3 +429,11 @@ def load_config(path_or_dict) -> PipelineConfig:
     cfg = PipelineConfig(**known)
     object.__setattr__(cfg, "extra", unknown)
     return cfg
+
+
+def save_config(cfg: PipelineConfig, path: str) -> None:
+    """Write every field of `cfg` in field order, as the JAX package's
+    save_config (yaml.safe_dump of dataclasses.asdict, sort_keys=False)
+    writes it; both packages' load_config read it back equal."""
+    with open(path, "w") as f:
+        f.write(dump_yaml_subset(dataclasses.asdict(cfg)))

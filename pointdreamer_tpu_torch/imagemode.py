@@ -1,0 +1,114 @@
+"""A decoded image in its PIL mode, and PIL's conversions from each mode.
+
+The decoders (`io.py`, `jpeg.py`, `gif.py`, `tiff.py`, `webp.py`) return
+what `Image.open` holds: the mode and its pixels.  `to_rgb` and `to_rgba`
+are PIL 12.1's `convert("RGB")` / `convert("RGBA")` from each mode, bit for
+bit; `natural` is the array `io.load_image` returns (uint8 [H, W, C], C = 1
+grey, 2 grey + alpha, 3 RGB, 4 RGBA).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+
+
+class ModeImage(NamedTuple):
+    """Pixels in a PIL mode: "1" and "L" [H, W] uint8 ("1" holds 0 / 255),
+    "I;16" [H, W] uint16, "LA", "RGB", "RGBA", "RGBa" (alpha
+    premultiplied) and "CMYK" [H, W, C] uint8, "P" [H, W] uint8 indices
+    into `palette` [256, 3] uint8.  `transparency` is the index ("P") or
+    grey level ("L") that `convert("RGBA")` makes transparent, or None."""
+    mode: str
+    pixels: np.ndarray
+    palette: Optional[np.ndarray] = None
+    transparency: Optional[int] = None
+
+
+def of_array(a: np.ndarray) -> ModeImage:
+    """A uint8 [H, W, C] array (C 1..4) as the mode it holds."""
+    mode = {1: "L", 2: "LA", 3: "RGB", 4: "RGBA"}[a.shape[-1]]
+    return ModeImage(mode, a[..., 0] if mode == "L" else a)
+
+
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """Pillow's cmyk2rgb: each channel (255 - K) - X (255 - K) / 255, the
+    division rounded as its MULDIV255 rounds it."""
+    x = cmyk.astype(np.int64)
+    nk = 255 - x[..., 3:]
+    t = x[..., :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
+def unpremultiply(rgba: np.ndarray) -> np.ndarray:
+    """Pillow's rgba2rgbA ("RGBa" -> "RGBA"): each colour 255 c / a,
+    truncated and clipped, where 0 < a < 255; unchanged elsewhere."""
+    x = rgba.astype(np.int64)
+    a = x[..., 3:]
+    div = np.minimum(255 * x[..., :3] // np.maximum(a, 1), 255)
+    rgb = np.where((a == 0) | (a == 255), x[..., :3], div)
+    return np.concatenate([rgb, a], -1).astype(np.uint8)
+
+
+def _grey(img: ModeImage) -> np.ndarray:
+    p = img.pixels
+    if img.mode == "I;16":
+        return np.minimum(p, 255).astype(np.uint8)
+    return p[..., 0] if img.mode == "LA" else p
+
+
+def to_rgb(img: ModeImage) -> np.ndarray:
+    """PIL's `convert("RGB")`: uint8 [H, W, 3]."""
+    m, p = img.mode, img.pixels
+    if m in ("1", "L", "I;16", "LA"):
+        out = np.repeat(_grey(img)[..., None], 3, -1)
+    elif m == "RGB":
+        out = p
+    elif m == "RGBA":
+        out = p[..., :3]
+    elif m == "RGBa":
+        out = unpremultiply(p)[..., :3]
+    elif m == "CMYK":
+        out = cmyk_to_rgb(p)
+    elif m == "P":
+        out = img.palette[p]
+    else:
+        raise ValueError(f"no conversion from mode {m!r}")
+    return np.ascontiguousarray(out)
+
+
+def to_rgba(img: ModeImage) -> np.ndarray:
+    """PIL's `convert("RGBA")`: uint8 [H, W, 4]; a "P" or "L" image's
+    `transparency` becomes alpha 0, every other pixel of a mode without
+    alpha is opaque."""
+    m, p = img.mode, img.pixels
+    if m == "RGBA":
+        return np.ascontiguousarray(p)
+    if m == "RGBa":
+        return unpremultiply(p)
+    if m == "LA":
+        alpha = p[..., 1]
+    elif img.transparency is not None and m in ("P", "L"):
+        alpha = np.where(p == img.transparency, 0, 255).astype(np.uint8)
+    else:
+        alpha = np.full(p.shape[:2], 255, np.uint8)
+    return np.ascontiguousarray(np.concatenate([to_rgb(img),
+                                                alpha[..., None]], -1))
+
+
+def natural(img: ModeImage) -> np.ndarray:
+    """The uint8 [H, W, C] array `io.load_image` returns: "1", "L" and
+    "I;16" (clipped at 255) as grey [H, W, 1], grey + alpha where "L" has
+    a transparent level; "LA", "RGB" and "RGBA" as they are; "RGBa"
+    un-premultiplied; "CMYK" as RGB; "P" through its palette, RGBA when
+    it has a transparent index."""
+    m = img.mode
+    if m == "L" and img.transparency is not None:
+        return to_rgba(img)[..., [0, 3]]
+    if m in ("1", "L", "I;16"):
+        return np.ascontiguousarray(_grey(img)[..., None])
+    if m in ("LA", "RGB", "RGBA"):
+        return img.pixels
+    if m == "RGBa" or (m == "P" and img.transparency is not None):
+        return to_rgba(img)
+    return to_rgb(img)

@@ -1,16 +1,17 @@
 """Host-side IO: PLY point clouds and meshes, OBJ/MTL meshes, images.
 
 Twin of pointdreamer_tpu's core/io.py without PIL or cv2.  PNGs are
-written with zlib + struct (8-bit, filter 0).  Every image the JAX
-package reads through PIL for its extensions (.png .jpg .jpeg .bmp .webp
-.ppm) is read here with the same uint8 pixels: PNG (every colour type and
-depth, palettes and tRNS, Adam7), binary and ASCII PPM/PGM (maxval 255),
-BMP (palettes, RLE, 16/24/32-bit), JPEG (baseline and progressive,
-`jpeg.py`) and WebP (lossy, lossless, alpha, the first frame of an
+written with zlib + struct (8-bit, filter 0).  An image file is told
+apart by its content, as PIL's `Image.open` tells it (the extension only
+where the content matches no signature), and read with PIL 12.1's pixels
+in PIL's mode (`imagemode.ModeImage`): PNG (every colour type and depth,
+palettes and tRNS, Adam7), binary and ASCII PBM/PGM/PPM (maxval 255), BMP
+(palettes, RLE, 16/24/32-bit), JPEG (`jpeg.py`), GIF (`gif.py`), TIFF
+(`tiff.py`) and WebP (lossy, lossless, alpha, the first frame of an
 animation: `webp.py`).  `load_rgb` / `load_rgba` are PIL's
-convert("RGB") / convert("RGBA").  Image writers take numpy arrays or
-torch tensors; a device tensor is quantized to uint8 on the device before
-the one host transfer.
+convert("RGB") / convert("RGBA") from that mode.  Image writers take numpy
+arrays or torch tensors; a device tensor is quantized to uint8 on the
+device before the one host transfer.
 """
 from __future__ import annotations
 
@@ -23,7 +24,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from .jpeg import decode_jpeg
+from .gif import decode_gif
+from .imagemode import ModeImage, natural, of_array, to_rgb, to_rgba
+from .jpeg import decode_jpeg, decode_jpeg_image  # noqa: F401 (re-export)
+from .tiff import decode_tiff
 from .webp import decode_webp
 
 # --------------------------------------------------------------------------
@@ -482,14 +486,16 @@ def load_png(path: str) -> np.ndarray:
         return decode_png(f.read())
 
 
-def decode_pnm(data: bytes) -> np.ndarray:
-    """PPM (P6, P3) or PGM (P5, P2) bytes with maxval 255 -> uint8
-    [H,W,C]."""
+def decode_pnm(data: bytes) -> ModeImage:
+    """PBM (P1, P4: mode "1"), PGM (P2, P5: "L") or PPM (P3, P6: "RGB")
+    bytes, maxval 255 for PGM and PPM, as PIL reads them (PBM's 1 is
+    black)."""
     magic = data[:2]
-    if magic not in (b"P2", b"P3", b"P5", b"P6"):
+    if magic not in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6"):
         raise ValueError(f"unsupported PNM type {magic!r}")
+    bitmap = magic in (b"P1", b"P4")
     fields, pos = [], 2
-    while len(fields) < 3:                     # width, height, maxval
+    while len(fields) < (2 if bitmap else 3):   # width, height, maxval
         while data[pos:pos + 1].isspace():
             pos += 1
         if data[pos:pos + 1] == b"#":
@@ -500,7 +506,21 @@ def decode_pnm(data: bytes) -> np.ndarray:
             end += 1
         fields.append(int(data[pos:end]))
         pos = end
-    w, h, maxval = fields
+    w, h = fields[:2]
+    if bitmap:
+        if magic == b"P4":
+            stride = (w + 7) // 8
+            rows = np.frombuffer(data, np.uint8, h * stride, pos + 1)
+            bits = np.unpackbits(rows.reshape(h, stride), axis=1)[:, :w]
+        else:
+            body = b"".join(ln.split(b"#")[0]
+                            for ln in data[pos:].splitlines())
+            body = b"".join(body.split())[:h * w]
+            if len(body) < h * w or body.strip(b"01"):
+                raise ValueError("PBM: bad or too few plain samples")
+            bits = (np.frombuffer(body, np.uint8) - 48).reshape(h, w)
+        return ModeImage("1", np.where(bits == 1, 0, 255).astype(np.uint8))
+    maxval = fields[2]
     if maxval != 255:
         raise ValueError(f"unsupported PNM maxval {maxval}")
     c = 3 if magic in (b"P3", b"P6") else 1
@@ -510,7 +530,7 @@ def decode_pnm(data: bytes) -> np.ndarray:
         body = b" ".join(ln.split(b"#")[0]
                          for ln in data[pos:].splitlines())
         a = np.array(body.split()[:h * w * c], np.int64).astype(np.uint8)
-    return a.reshape(h, w, c).copy()
+    return of_array(a.reshape(h, w, c).copy())
 
 
 # 32-bit BI_BITFIELDS masks (r, g, b, a) PIL reads, and their channel
@@ -695,30 +715,86 @@ def decode_bmp(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(img if flip else img[::-1])
 
 
-_DECODERS = {".png": decode_png, ".ppm": decode_pnm, ".pgm": decode_pnm,
-             ".pnm": decode_pnm, ".bmp": decode_bmp, ".jpg": decode_jpeg,
-             ".jpeg": decode_jpeg, ".webp": decode_webp}
+def _png_image(data: bytes) -> ModeImage:
+    return of_array(decode_png(data))
+
+
+def _bmp_image(data: bytes) -> ModeImage:
+    return of_array(decode_bmp(data))
+
+
+def _webp_image(data: bytes) -> ModeImage:
+    return of_array(decode_webp(data))
+
+
+# the leading bytes PIL's plugins accept (WebP's RIFF header aside), and
+# the decoder of each
+_SIGNATURES = (
+    ((b"BM",), "BMP", _bmp_image),
+    ((b"GIF87a", b"GIF89a"), "GIF", decode_gif),
+    ((b"\xff\xd8\xff",), "JPEG", decode_jpeg_image),
+    ((_PNG_SIG,), "PNG", _png_image),
+    ((b"P1", b"P2", b"P3", b"P4", b"P5", b"P6"), "PNM", decode_pnm),
+    ((b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"), "TIFF",
+     decode_tiff),
+)
+_BY_TYPE = {name: dec for _, name, dec in _SIGNATURES}
+_BY_TYPE["WEBP"] = _webp_image
+# where the content matches no signature, the extension names the decoder
+_EXTENSIONS = {".png": _png_image, ".ppm": decode_pnm,
+               ".pgm": decode_pnm, ".pbm": decode_pnm,
+               ".pnm": decode_pnm, ".bmp": _bmp_image,
+               ".jpg": decode_jpeg_image, ".jpeg": decode_jpeg_image,
+               ".webp": _webp_image, ".gif": decode_gif,
+               ".tif": decode_tiff, ".tiff": decode_tiff}
+
+
+def image_type(data: bytes) -> str:
+    """The format the content says ("PNG", "JPEG", "GIF", "TIFF", "BMP",
+    "WEBP", "PNM"), as PIL's `Image.open` picks its plugin; "" if none."""
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WEBP"
+    for sigs, name, _ in _SIGNATURES:
+        if data.startswith(sigs):
+            return name
+    return ""
+
+
+def decode_image(data: bytes, path: str = "") -> ModeImage:
+    """Image bytes -> the image in its PIL mode (`imagemode.ModeImage`),
+    the decoder picked by content as PIL picks it; by `path`'s extension
+    only where the content matches no signature."""
+    kind = image_type(data)
+    if kind:
+        return _BY_TYPE[kind](data)
+    ext = os.path.splitext(path)[1].lower()
+    if ext in _EXTENSIONS:
+        return _EXTENSIONS[ext](data)
+    raise ValueError(f"{path or 'image'}: unknown image type (content "
+                     f"{data[:8]!r}, extension {ext!r})")
+
+
+def read_image(path: str) -> ModeImage:
+    """The image file at `path` in its PIL mode (`decode_image`)."""
+    with open(path, "rb") as f:
+        return decode_image(f.read(), path)
 
 
 def load_image(path: str) -> np.ndarray:
-    """A PNG, PPM/PGM, BMP, JPEG (baseline or progressive, `jpeg.py`) or
-    WebP (`webp.py`) -> uint8 [H,W,C]: grey (C 1), grey + alpha (2), RGB
-    (3) or RGBA (4), palettes expanded, each bit for bit what PIL 12.1
-    decodes.  Where PIL fails, this raises."""
-    ext = os.path.splitext(path)[1].lower()
-    if ext not in _DECODERS:
-        raise ValueError(f"{path}: unknown image type {ext!r}")
-    with open(path, "rb") as f:
-        return _DECODERS[ext](f.read())
+    """A PNG, JPEG (baseline, progressive, arithmetic, lossless; grey, RGB,
+    CMYK and YCCK: `jpeg.py`), GIF (`gif.py`), TIFF (`tiff.py`), BMP, WebP
+    (`webp.py`) or PBM/PGM/PPM file, told apart by content as PIL tells
+    them -> uint8 [H,W,C]: grey (C 1), grey + alpha (2), RGB (3) or RGBA
+    (4), palettes expanded (`imagemode.natural`), each bit for bit what PIL
+    12.1 decodes.  Where PIL fails, this raises."""
+    return natural(read_image(path))
 
 
 def load_rgb_uint8(path: str) -> np.ndarray:
-    """`load_image` as RGB uint8 [H,W,3] (alpha dropped, gray expanded:
-    PIL's `convert("RGB")`)."""
-    a = load_image(path)
-    if a.shape[-1] in (1, 2):
-        a = np.repeat(a[..., :1], 3, axis=-1)
-    return np.ascontiguousarray(a[..., :3])
+    """An image (`load_image`'s types) as RGB uint8 [H,W,3]: PIL's
+    `convert("RGB")` from its mode (alpha dropped, grey expanded, CMYK
+    through Pillow's cmyk2rgb, a palette looked up)."""
+    return to_rgb(read_image(path))
 
 
 def load_rgb(path: str) -> np.ndarray:
@@ -728,14 +804,11 @@ def load_rgb(path: str) -> np.ndarray:
 
 
 def load_rgba_uint8(path: str) -> np.ndarray:
-    """`load_image` as RGBA uint8 [H,W,4]: PIL's `convert("RGBA")` (grey
-    expanded, alpha 255 where the image has none)."""
-    a = load_image(path)
-    c = a.shape[-1]
-    rgb = np.repeat(a[..., :1], 3, axis=-1) if c in (1, 2) else a[..., :3]
-    alpha = a[..., -1:] if c in (2, 4) else np.full(a.shape[:2] + (1,), 255,
-                                                    np.uint8)
-    return np.ascontiguousarray(np.concatenate([rgb, alpha], -1))
+    """An image (`load_image`'s types) as RGBA uint8 [H,W,4]: PIL's
+    `convert("RGBA")` from its mode (grey expanded, a transparent palette
+    index or grey level alpha 0, "RGBa" un-premultiplied, alpha 255 where
+    the image has none)."""
+    return to_rgba(read_image(path))
 
 
 def load_rgba(path: str) -> np.ndarray:

@@ -13,9 +13,9 @@ numpy arrays (`ops/resample.py`, bit-equal to PIL's 8-bit resampling):
   :64-71;
 - CIFAR10: BILINEAR to the square, :49-50.
 
-Images are read through the port's `io.load_image`, which decodes every
-extension of IMG_EXTS (PNG, JPEG, BMP, WebP, PPM) to the pixels PIL
-gives.  Batches come out NHWC float32 in [0,1].
+Images are read through the port's `io.load_rgb_uint8`, which tells the
+format of each file of IMG_EXTS by its content, as PIL does, and decodes
+it to the pixels PIL's convert("RGB") gives.  Batches come out NHWC float32 in [0,1].
 """
 from __future__ import annotations
 

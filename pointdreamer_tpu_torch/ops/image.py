@@ -1,6 +1,7 @@
 """Batched 2D image ops (twin of ops/image.py).
 
-scharr_edges, dilate, inner_edge_mask, the jump-flooding nearest_fill,
+scharr_edges, dilate, erode, morph_close, bilateral_filter,
+inner_edge_mask, the jump-flooding nearest_fill,
 pullpush_fill, rescale_about_center, bilinear_sample, and
 `resize_linear` / `scale_and_translate_linear`: the same weight matrices
 as jax.image's triangle kernel (compute_weight_mat), contracted in fp32.
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -39,6 +41,52 @@ def dilate(binary: torch.Tensor, kernel_size: int) -> torch.Tensor:
     x4 = F.pad(x.reshape(-1, 1, h, w), (lo, hi, lo, hi), mode="reflect")
     y = F.max_pool2d(x4, kernel_size, stride=1)
     return y.reshape(binary.shape)
+
+
+def erode(binary: torch.Tensor, kernel_size: int) -> torch.Tensor:
+    """Square-kernel erosion (the dual of `dilate`); [..., H, W] -> float."""
+    if kernel_size <= 1:
+        return binary.float()
+    return 1.0 - dilate(1.0 - binary.float(), kernel_size)
+
+
+def morph_close(binary: torch.Tensor, kernel_size: int = 7) -> torch.Tensor:
+    """Morphological closing (dilate, then erode): fills holes smaller than
+    the kernel in a mask; [..., H, W] -> float."""
+    return erode(dilate(binary, kernel_size), kernel_size)
+
+
+def bilateral_filter(img: torch.Tensor, ksize: int,
+                     sigma_color: float | None = None,
+                     sigma_space: float | None = None) -> torch.Tensor:
+    """Edge-preserving bilateral filter of img [..., H, W, C] in [0, 1],
+    reflect-padded, on img's device: each of the ksize^2 window offsets is
+    a shifted view, weighted by exp(-d^2 / 2 sigma_space^2) and
+    exp(-(nb - x)^2 / 2 sigma_color^2) (sigma_space 0.15 ksize + 0.35 and
+    sigma_color = sigma_space by default)."""
+    if sigma_space is None:
+        sigma_space = 0.15 * ksize + 0.35
+    if sigma_color is None:
+        sigma_color = sigma_space
+    pad = (ksize - 1) // 2
+    x = img.float()
+    h, w, c = x.shape[-3:]
+    x4 = x.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    xp = F.pad(x4, (pad, pad, pad, pad), mode="reflect").permute(
+        0, 2, 3, 1).reshape(x.shape[:-3] + (h + 2 * pad, w + 2 * pad, c))
+    num = torch.zeros_like(x)
+    den = torch.zeros_like(x)
+    inv2s = 1.0 / (2.0 * sigma_space ** 2)
+    inv2c = 1.0 / (2.0 * sigma_color ** 2)
+    for dy in range(ksize):
+        for dx in range(ksize):
+            nb = xp[..., dy:dy + h, dx:dx + w, :]
+            ws = float(np.float32(np.exp(-((dy - pad) ** 2 + (dx - pad) ** 2)
+                                         * inv2s)))
+            wgt = ws * torch.exp(-((nb - x) ** 2) * inv2c)
+            num = num + wgt * nb
+            den = den + wgt
+    return num / torch.clamp(den, min=1e-12)
 
 
 def inner_edge_mask(foreground: torch.Tensor) -> torch.Tensor:
