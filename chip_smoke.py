@@ -195,10 +195,10 @@ Phases (each prints its own lines; any failure exits non-zero):
                 256/8, 64/8; one bf16 ulp; kernel table row
                 attention_qkv_encoder); each model at a tiny width, card
                 against CPU (1e-4 relative).  (d) recon_one_shape_NKSR at
-                its defaults on the cloud alone, card and CPU (chamfer <
-                1e-3; distance to the cube beside phase 5's), stage
-                seconds, the QEM to 10,000 faces; geometry_table
-                --backends NKSR on the card.
+                its defaults on the cloud alone on the card (distance to
+                the cube beside phase 5's), the card against the CPU at
+                grid 64 (chamfer < 1e-3), stage seconds, the QEM to
+                10,000 faces; geometry_table --backends NKSR on the card.
  12. multi-   : (a) at world size 1 through NCCL (one process, a
      device     tcp://127.0.0.1 store; the card cannot hold two ranks, so
      & host     dp > 1 and tp > 1 run only on the CPU, in the tests):
@@ -256,6 +256,24 @@ Phases (each prints its own lines; any failure exits non-zero):
                 with their CUDA-event ms.  (e) the 512x384 LZW TIFF, GIF
                 and arithmetic-JPEG timing fixtures: median host seconds
                 of 3 decodes, the SHA-256 against the committed one.
+ 15. readers  : configs and images the JAX package reads through PyYAML
+                and PIL that the port refused or misread (yamlread.py,
+                io.py's PNM, tiff.py, fax.py, tga.py, pcx.py, sgi.py,
+                qoi.py, ico.py, msp.py, xbm.py; host code).  (a) every
+                fixture under tests/data/{pnm,tiff_more,tga,pcx,sgi,qoi,
+                ico,bilevel,restore16} against its committed PIL decode
+                (convert("RGBA")), bit for bit; host seconds by detected
+                type.  (b) cli/ddnm_restore over tests/data/restore16 (P6
+                at maxval 65535 and 100, P5 at 1000, a CMYK LZW TIFF, a
+                YCbCr JPEG TIFF, an RLE TGA, an RLE SGI and a QOI, under
+                .ppm, .png and .jpg names), as phase 13 (b): sr4, batch 8,
+                100 steps, the seeded random 552.8M bf16 UNet, the fed
+                batch equal to the one built from the PIL decodes, K2 =
+                1600; then --image on a 256x256 TGA, the fed image equal to
+                its PIL decode, K2 = 1600.  (c) the configs with anchors,
+                merge keys, block scalars and tags load to the
+                PipelineConfig of their plain twin; strict=True raises on
+                their unknown keys.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2688,11 +2706,13 @@ def models_phase(dev, gen, table: list, B: int = 8,
 
 def nksr_phase(dev, ply_alone: str, work: str, spr_dist: float) -> None:
     """Phase 11 (d): recon_one_shape_NKSR at its defaults (4,096 centres,
-    grid 128, mise_iter 2) on the cloud alone, on the card (after a small
-    warm-up) and through the port's CPU path: the two meshes within a
-    chamfer of 1e-3, the distance to the cube beside phase 5's SPR mesh,
-    each stage's seconds, the QEM of the card's mesh to 10,000 faces; then
-    cli/geometry_table --backends NKSR once on the card."""
+    grid 128, mise_iter 2) on the cloud alone on the card (after a small
+    warm-up), timed, its distance to the cube beside phase 5's SPR mesh,
+    each stage's seconds, the QEM of its mesh to 10,000 faces; the card
+    against the port's CPU path at grid 64 (the two meshes
+    within a chamfer of 1e-3; the CPU reference at the defaults took 85-146
+    s of the script's limit); then cli/geometry_table --backends NKSR once
+    on the card."""
     import numpy as np
     import torch
 
@@ -2703,21 +2723,27 @@ def nksr_phase(dev, ply_alone: str, work: str, spr_dist: float) -> None:
     from pointdreamer_tpu_torch.ops import qem
     from pointdreamer_tpu_torch.pipeline.geometry import normalize_points
 
+    compare_grid = 64
     xyz, rgb = pio.read_ply_xyzrgb(ply_alone)
     xyz_n, _, _ = normalize_points(xyz)
     rgb01 = rgb.astype(np.float32) / 255.0
     recon_one_shape_NKSR(xyz_n, rgb01, grid_res=32, device=dev)  # warm-up
     timers = {}
     meshes = {}
-    for d in (dev, "cpu"):
-        timers[d] = StageTimer(None, sync=True)
+    for what, d, grid in (("card, defaults", dev, 128),
+                          (f"card, grid {compare_grid}", dev, compare_grid),
+                          (f"CPU, grid {compare_grid}", "cpu",
+                           compare_grid)):
+        timers[what] = StageTimer(None, sync=True)
         t0 = time.perf_counter()
-        meshes[d] = recon_one_shape_NKSR(xyz_n, rgb01, device=d,
-                                         timer=timers[d])
+        meshes[what] = recon_one_shape_NKSR(xyz_n, rgb01, grid_res=grid,
+                                            device=d, timer=timers[what])
         torch.cuda.synchronize()
-        timers[d].record("wall", time.perf_counter() - t0)
-    (v, f, c), (vc, fc, cc) = meshes[dev], meshes["cpu"]
-    tv, tf = torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev)
+        timers[what].record("wall", time.perf_counter() - t0)
+    v, f, c = meshes["card, defaults"]
+    (vg, fg, cg), (vc, fc, cc) = (meshes[f"card, grid {compare_grid}"],
+                                  meshes[f"CPU, grid {compare_grid}"])
+    tv, tf = torch.as_tensor(vg, device=dev), torch.as_tensor(fg, device=dev)
     cv, cf = torch.as_tensor(vc, device=dev), torch.as_tensor(fc, device=dev)
     chamfer = 0.5 * float(to_surface(tv, cv, cf).mean()
                           + to_surface(cv, tv, tf).mean())
@@ -2725,21 +2751,27 @@ def nksr_phase(dev, ply_alone: str, work: str, spr_dist: float) -> None:
     t0 = time.perf_counter()
     _, fq = qem.simplify(v, f, 10000)
     t_qem = time.perf_counter() - t0
-    # inverse-distance weights summing to one, in fp32
-    ok_col = c is not None and bool(np.isfinite(c).all()) and \
-        float(c.min()) >= -1e-6 and float(c.max()) <= 1 + 1e-6
-    for d in (dev, "cpu"):
-        print(f"[nksr] recon_one_shape_NKSR on {d}: " + json.dumps(
-            {k: round(s, 4) for k, s in timers[d].times.items()}))
-    same = f.shape == fc.shape and bool((f == fc).all())
-    print(f"[nksr] card mesh {len(v)} vertices {len(f)} faces (CPU "
-          f"{len(fc)}), same faces {same}; chamfer to the CPU mesh {chamfer:.3g} (bound 1e-3); distance "
-          f"to the cube mean {dist.mean():.5f} p95 "
+
+    def colours_ok(col):
+        # inverse-distance weights summing to one, in fp32
+        return col is not None and bool(np.isfinite(col).all()) and \
+            float(col.min()) >= -1e-6 and float(col.max()) <= 1 + 1e-6
+
+    ok_col = colours_ok(c) and colours_ok(cg)
+    for what, timer in timers.items():
+        print(f"[nksr] recon_one_shape_NKSR, {what}: " + json.dumps(
+            {k: round(s, 4) for k, s in timer.times.items()}))
+    same = fg.shape == fc.shape and bool((fg == fc).all())
+    print(f"[nksr] card mesh at the defaults {len(v)} vertices {len(f)} "
+          f"faces; at grid {compare_grid} card {len(fg)} / CPU {len(fc)} "
+          f"faces, same faces {same}, chamfer card to CPU {chamfer:.3g} "
+          f"(bound 1e-3); distance to the cube mean {dist.mean():.5f} p95 "
           f"{np.percentile(dist, 95):.5f} (SPR, phase 5: {spr_dist:.5f}); "
           f"outward {outward:.5f}; colours in [0, 1] {ok_col}; the QEM of "
           f"the card's mesh to {len(fq)} faces {t_qem:.3f} s")
-    if not (len(f) and chamfer < 1e-3 and ok_col):
-        fail(f"nksr: {len(f)} faces, chamfer {chamfer}, colours {ok_col}")
+    if not (len(f) and len(fg) and chamfer < 1e-3 and ok_col):
+        fail(f"nksr: {len(f)} / {len(fg)} faces, chamfer {chamfer}, "
+             f"colours {ok_col}")
 
     data = os.path.join(work, "in_nksr")
     os.makedirs(data, exist_ok=True)
@@ -3216,13 +3248,14 @@ def _restore_run(argv):
     return fed, runs, wall, dict(kernels.LAUNCHES)
 
 
-def _check_restore(what, runs, launches, n_images, steps, files, want):
+def _check_restore(what, runs, launches, n_images, steps, files, want,
+                   tag: str = "inputs"):
     import torch
 
     ys = torch.cat([y for _, y in runs]) if runs else torch.zeros(0)
     finite = bool(torch.isfinite(ys).all())
     lo, hi = (float(ys.min()), float(ys.max())) if ys.numel() else (0, 0)
-    print(f"[inputs] {what}: sampler {sum(t for t, _ in runs):.3f} s over "
+    print(f"[{tag}] {what}: sampler {sum(t for t, _ in runs):.3f} s over "
           f"{len(runs)} batch(es); launches {json.dumps(launches)}; "
           f"outputs {tuple(ys.shape)} finite {finite} in [{lo:.4f}, "
           f"{hi:.4f}]; {len(files)} PNGs")
@@ -3404,6 +3437,133 @@ def inputs_phase(dev, work: str, cfg, steps: int = 100,
               f"{'matches' if digest == want else 'DIFFERS'}")
         if digest != want:
             fail(f"{f}: decoded bytes {digest}, committed {want}")
+
+
+# ---- phase 15: configs and images the port refused or misread -----------
+
+# the fixture folders of this phase under tests/data; each file's PIL
+# decode (convert("RGBA")) is `<stem>_pil.png` beside it
+READER_DIRS = ("pnm", "tiff_more", "tga", "pcx", "sgi", "qoi", "ico",
+               "bilevel", "restore16")
+READER_TYPES = {"PNM", "TIFF", "TGA", "PCX", "SGI", "QOI", "ICO", "CUR",
+                "DIB", "MSP", "XBM"}
+
+
+def readers_phase(dev, work: str, steps: int = 100) -> None:
+    """Phase 15: every fixture of the new readers against its committed
+    PIL decode; the restore CLI over tests/data/restore16 (files only the
+    new readers decode, under the dataset's extensions) and --image on a
+    256x256 TGA; the configs with anchors, merge keys, block scalars and
+    tags against their plain twin."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+
+    from pointdreamer_tpu_torch import config as pcfg
+    from pointdreamer_tpu_torch import io as pio
+    from pointdreamer_tpu_torch.models.diffusion import datasets
+
+    data = os.path.join(REPO, "tests", "data")
+    # (a) the fixtures, bit for bit, host seconds by type
+    t0 = time.perf_counter()
+    secs, counts = {}, {}
+    bad = []
+    for sub in READER_DIRS:
+        for f in sorted(os.listdir(os.path.join(data, sub))):
+            if f.endswith("_pil.png"):
+                continue
+            path = os.path.join(data, sub, f)
+            with open(path, "rb") as fh:
+                kind = pio.image_type(fh.read())
+            t1 = time.perf_counter()
+            got = pio.load_rgba_uint8(path)
+            secs[kind] = secs.get(kind, 0.0) + time.perf_counter() - t1
+            counts[kind] = counts.get(kind, 0) + 1
+            want = pio.load_png(os.path.join(
+                data, sub, os.path.splitext(f)[0] + "_pil.png"))
+            if got.shape != want.shape or not (got == want).all():
+                bad.append(f"{sub}/{f}")
+    print("[readers] " + ", ".join(
+        f"{counts[k]} {k} in {secs[k]:.3f} s" for k in sorted(secs))
+        + f" (host; {time.perf_counter() - t0:.3f} s in all), each "
+        "bit-equal to its committed PIL decode")
+    if bad or set(counts) != READER_TYPES:
+        fail(f"reader fixtures: {bad} differ; types {sorted(counts)}")
+
+    # (b) the restore CLI: the folder of 8, then --image on a TGA
+    src = os.path.join(work, "phase15_in")
+    os.makedirs(src, exist_ok=True)
+    names = sorted(f for f in os.listdir(os.path.join(data, "restore16"))
+                   if not f.endswith("_pil.png"))
+    for f in names:
+        shutil.copy(os.path.join(data, "restore16", f), os.path.join(src, f))
+    out = os.path.join(work, "phase15_out")
+    fed, runs, wall, launches = _restore_run(
+        ["--image_dir", src, "--dataset", "IMAGENET", "--deg", "sr4",
+         "--batch", "8", "--steps", str(steps), "--out", out])
+    same = bool(fed)
+    for fnames, imgs in fed:
+        want = np.stack([datasets.center_crop_arr(pio.load_png(os.path.join(
+            data, "restore16", os.path.splitext(os.path.basename(n))[0]
+            + "_pil.png"))[..., :3], 256).astype(np.float32) / 255.0
+            for n in fnames])
+        same &= imgs.shape == want.shape and bool((imgs == want).all())
+    kinds = sorted(pio.image_type(open(os.path.join(src, f), "rb").read())
+                   for f in names)
+    print(f"[readers] ddnm_restore --image_dir over {len(names)} files "
+          f"({', '.join(kinds)} under .ppm, .png and .jpg names), IMAGENET, "
+          f"sr4, batch 8, {steps} steps: {wall:.3f} s; fed batch equal "
+          f"to the PIL-decoded batch: {same}")
+    if not same or len(names) != 8:
+        fail("restore: the dataset's batch differs from the batch of the "
+             "committed PIL decodes")
+    _check_restore("folder", runs, launches, len(names), steps,
+                   sorted(os.listdir(out)) if os.path.isdir(out) else [],
+                   sorted(f"{os.path.splitext(n)[0]}{s}.png" for n in names
+                          for s in ("", "_degraded")), tag="readers")
+    path = os.path.join(data, "tga", "restore_256.tga")
+    out_png = os.path.join(work, "phase15_tga", "out.png")
+    os.makedirs(os.path.dirname(out_png), exist_ok=True)
+    fed, runs, wall, launches = _restore_run(
+        ["--image", path, "--dataset", "IMAGENET", "--deg", "sr4",
+         "--steps", str(steps), "--out", out_png])
+    want = pio.load_png(os.path.join(data, "tga", "restore_256_pil.png"))
+    want = want[..., :3].astype(np.float32)[None] / 255.0
+    same = len(fed) == 1 and fed[0][1].shape == want.shape and bool(
+        (fed[0][1] == want).all())
+    print(f"[readers] ddnm_restore --image restore_256.tga (256x256, "
+          f"bottom-up TGA), sr4, {steps} steps: {wall:.3f} s; fed image "
+          f"equal to its PIL decode: {same}")
+    if not same:
+        fail("restore --image restore_256.tga: the fed image differs from "
+             "its committed PIL decode")
+    _check_restore("restore_256.tga", runs, launches, 1, steps,
+                   sorted(os.listdir(os.path.dirname(out_png))),
+                   ["out.png", "out_degraded.png"], tag="readers")
+
+    # (c) the configs of the YAML reader against their plain twin
+    t0 = time.perf_counter()
+    cdir = os.path.join(data, "config")
+    twin = dataclasses.asdict(pcfg.load_config(os.path.join(
+        cdir, "plain_twin.yaml")))
+    results = {}
+    for f in ("anchors_merge.yaml", "block_scalars_tags.yaml"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            cfg = pcfg.load_config(os.path.join(cdir, f))
+        try:
+            pcfg.load_config(os.path.join(cdir, f), strict=True)
+            strict = False
+        except KeyError:
+            strict = True
+        results[f] = (dataclasses.asdict(cfg) == twin, sorted(cfg.extra),
+                      strict)
+    print(f"[readers] configs against plain_twin.yaml (equal, extra keys, "
+          f"strict=True raises): {json.dumps(results)}; "
+          f"{time.perf_counter() - t0:.4f} s")
+    if not all(eq and strict for eq, _, strict in results.values()):
+        fail(f"configs: {results}")
 
 
 def main() -> int:
@@ -3843,6 +4003,13 @@ def main() -> int:
     inputs_phase(dev, work, cfg)
     print(f"[inputs] phase 14 {time.perf_counter() - t14:.2f} s")
 
+    # ---- 15. configs and images the port refused or misread ------------
+    t15 = time.perf_counter()
+    torch.cuda.empty_cache()
+    readers_phase(dev, work)
+    print(f"[readers] phase 15 {time.perf_counter() - t15:.2f} s")
+
+    print(card)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,23 +1,24 @@
 """Typed configuration for the PyTorch port (twin of pointdreamer_tpu's
 core/config.py: the same dataclass with the same defaults).
 
-The port does not depend on PyYAML, so `load_config` reads the
-configs with a small parser for the flat subset that `configs/*.yaml`
-use and that yaml.safe_dump writes for a PipelineConfig (so a config the
-JAX package's save_config wrote reads back equal): `key: value` lines,
-`# comments`, plain, single- and double-quoted strings, YAML 1.1
-booleans, ints, floats, nulls, flow lists `[a, b]` and block sequences of
-scalars.  As under yaml.safe_load, the word `None` is a string, which
-`_coerce` turns into None exactly as the JAX loader does.  `save_config`
-writes what the JAX package's writes.
+The port does not depend on PyYAML: `load_config` reads a config file
+with `yamlread.safe_load`, which loads what `yaml.safe_load` loads (one
+document: block and flow collections, anchors, aliases and merge keys,
+block scalars, tags, YAML 1.1's implicit types) and refuses what it
+refuses, naming the line.  The mapping is then treated as the JAX
+package's load_config treats it: the string "None" becomes None, floats
+in int fields become ints, unknown keys go to `extra` with a warning, or
+raise KeyError with `strict=True`.  `save_config` writes what the JAX
+package's writes (yaml.safe_dump).
 """
 from __future__ import annotations
 
 import dataclasses
-import re
 import warnings
 from dataclasses import dataclass, field
 from typing import List, Optional
+
+from . import yamlread
 
 
 @dataclass
@@ -113,203 +114,6 @@ class PipelineConfig:
 
 _FIELDS = {f.name: f for f in dataclasses.fields(PipelineConfig)}
 
-# YAML 1.1 scalar resolution, as PyYAML's safe loader applies it
-_NULL = {"~", "null", "Null", "NULL", ""}
-_TRUE = {"yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON"}
-_FALSE = {"no", "No", "NO", "false", "False", "FALSE", "off", "Off", "OFF"}
-_INT = re.compile(r"^[-+]?(0|[1-9][0-9_]*)$")
-_INT_OTHER = re.compile(r"^[-+]?(0b[01_]+|0[0-7_]+|0x[0-9a-fA-F_]+)$")
-_FLOAT = re.compile(r"^[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?$")
-_INF = re.compile(r"^[-+]?\.(inf|Inf|INF)$")
-_NAN = re.compile(r"^\.(nan|NaN|NAN)$")
-# what PyYAML resolves to a type no config field has, which this reader
-# refuses: sexagesimal numbers, timestamps, the merge and value keys
-_OTHER_TYPES = re.compile(
-    r"^([-+]?[0-9][0-9_]*(:[0-5]?[0-9])+(\.[0-9_]*)?"
-    r"|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}([Tt ].*)?|<<|=)$")
-_ESCAPES = {"0": "\0", "a": "\a", "b": "\b", "t": "\t", "\t": "\t",
-            "n": "\n", "v": "\v", "f": "\f", "r": "\r", "e": "\x1b",
-            " ": " ", '"': '"', "/": "/", "\\": "\\", "N": "\x85",
-            "_": "\xa0", "L": "\u2028", "P": "\u2029"}
-_HEX_ESCAPES = {"x": 2, "u": 4, "U": 8}
-
-
-def _strip_comment(line: str) -> str:
-    quote = None
-    for i, ch in enumerate(line):
-        if quote:
-            if ch == quote:
-                quote = None
-        elif ch in "'\"":
-            quote = ch
-        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
-            return line[:i]
-    return line
-
-
-def _split_flow(body: str):
-    items, depth, cur, quote = [], 0, "", None
-    for ch in body:
-        if quote:
-            cur += ch
-            if ch == quote:
-                quote = None
-            continue
-        if ch in "'\"":
-            quote = ch
-        elif ch == "[":
-            depth += 1
-        elif ch == "]":
-            depth -= 1
-        elif ch == "," and depth == 0:
-            items.append(cur)
-            cur = ""
-            continue
-        cur += ch
-    if cur.strip():
-        items.append(cur)
-    return items
-
-
-def _single_quoted(t: str) -> str:
-    body = t[1:-1]
-    if "'" in body.replace("''", ""):
-        raise ValueError(f"unsupported YAML: {t!r}")
-    return body.replace("''", "'")
-
-
-def _double_quoted(t: str) -> str:
-    body, out, i = t[1:-1], [], 0
-    while i < len(body):
-        ch = body[i]
-        if ch == '"':
-            raise ValueError(f"unsupported YAML: {t!r}")
-        if ch != "\\":
-            out.append(ch)
-            i += 1
-            continue
-        e = body[i + 1:i + 2]
-        if e in _ESCAPES:
-            out.append(_ESCAPES[e])
-            i += 2
-        elif e in _HEX_ESCAPES:
-            n = _HEX_ESCAPES[e]
-            out.append(chr(int(body[i + 2:i + 2 + n], 16)))
-            i += 2 + n
-        else:
-            raise ValueError(f"unsupported YAML escape in {t!r}")
-    return "".join(out)
-
-
-def parse_scalar(text: str):
-    """One YAML 1.1 value of the subset the configs use: a scalar or a flow
-    list of scalars."""
-    t = text.strip()
-    if t.startswith("[") and t.endswith("]"):
-        return [parse_scalar(x) for x in _split_flow(t[1:-1])]
-    if len(t) >= 2 and t[0] == t[-1] == "'":
-        return _single_quoted(t)
-    if len(t) >= 2 and t[0] == t[-1] == '"':
-        return _double_quoted(t)
-    if t in _NULL:
-        return None
-    if t in _TRUE:
-        return True
-    if t in _FALSE:
-        return False
-    if _INT.match(t):
-        return int(t.replace("_", ""))
-    if _INT_OTHER.match(t):
-        sign, digits = (-1, t[1:]) if t[0] == "-" else (1, t.lstrip("+"))
-        digits = digits.replace("_", "")
-        base = {"0b": 2, "0x": 16}.get(digits[:2], 8)
-        return sign * int(digits[2:] if base != 8 else digits, base)
-    if _FLOAT.match(t) and any(c.isdigit() for c in t):
-        return float(t.replace("_", ""))
-    if _INF.match(t):
-        return float("-inf") if t[0] == "-" else float("inf")
-    if _NAN.match(t):
-        return float("nan")
-    if _OTHER_TYPES.match(t):
-        raise ValueError(f"unsupported YAML: {t!r} (a non-string type)")
-    if t[:1] in "[{&*!|>%@`\"'" or t in ("-", "?") or t[:2] in ("- ", "? "):
-        raise ValueError(f"unsupported YAML: {t!r}")
-    return t
-
-
-def _fold(lines) -> str:
-    """Continuation lines of a scalar folded as YAML folds them: one space
-    between lines, an empty line a newline."""
-    out = lines[0]
-    for prev, ln in zip(lines, lines[1:]):
-        if not ln:
-            out += "\n"
-        elif prev:
-            out += " " + ln
-        else:
-            out += ln
-    return out
-
-
-def parse_yaml_subset(text: str) -> dict:
-    """A mapping of the YAML subset a config uses, and everything that
-    yaml.safe_dump writes for one: `key: value` lines of scalars (plain,
-    single- or double-quoted, folded over indented continuation lines)
-    and flow lists, `key:` followed by a block sequence of scalars (`-
-    item` lines at indent 0 or indented), `# comments`.  Anything else
-    raises naming its line."""
-    out = {}
-    entries = []            # [line number, key, value lines, items, indent]
-    for n, raw in enumerate(text.splitlines(), 1):
-        line = _strip_comment(raw).rstrip()
-        s = line.strip()
-        if not s:
-            if entries and entries[-1][2] and entries[-1][2][0][:1] in "'\"":
-                entries[-1][2].append("")       # a break in a quoted scalar
-            continue
-        if line == s and s in ("---", "..."):
-            continue
-        indent = len(line) - len(line.lstrip(" "))
-        if "\t" in line[:indent + 1]:
-            raise ValueError(f"config line {n}: unsupported YAML: {raw!r}")
-        cur = entries[-1] if entries else None
-        if s == "-" or s.startswith("- "):
-            item = s[1:].strip()
-            if cur is None or cur[2] or not item or (
-                    cur[3] and indent != cur[4]):
-                raise ValueError(f"config line {n}: unsupported YAML: "
-                                 f"{raw!r}")
-            if (item[0] not in "'\"" and ": " in item) or item[:1] in "-[{":
-                raise ValueError(f"config line {n}: unsupported YAML: "
-                                 f"{raw!r} (a sequence item that is not a "
-                                 "scalar)")
-            cur[3].append((n, raw, item))
-            cur[4] = indent
-        elif indent == 0:
-            key, sep, value = line.partition(":")
-            if not sep or (value and value[0] != " ") or not key.strip() \
-                    or key.strip()[0] in "'\"-?[{":
-                raise ValueError(f"config line {n}: unsupported YAML: "
-                                 f"{raw!r}")
-            entries.append([n, key.strip(), [value.strip()] if value.strip()
-                            else [], [], None])
-        elif cur is not None and cur[2] and not cur[3]:
-            cur[2].append(s)                    # a folded continuation
-        else:
-            raise ValueError(f"config line {n}: unsupported YAML: {raw!r}")
-    for n, key, value, items, _ in entries:
-        try:
-            if items:
-                out[key] = [parse_scalar(item) for _, _, item in items]
-                if any(isinstance(v, list) for v in out[key]):
-                    raise ValueError("a nested sequence")
-            else:
-                out[key] = parse_scalar(_fold(value) if value else "")
-        except ValueError as e:
-            raise ValueError(f"config line {n}: {e}") from None
-    return out
-
-
 def _yaml_float(v: float) -> str:
     """PyYAML's representer for a float."""
     if v != v:
@@ -337,10 +141,7 @@ def _plain_ok(s: str) -> bool:
             return False
         if i and ((ch == ":" and followed) or (ch == "#" and s[i - 1] == " ")):
             return False
-    try:
-        return parse_scalar(s) == s
-    except ValueError:
-        return False
+    return yamlread.resolve(s) == yamlread.TAG + "str"
 
 
 def _yaml_str(s: str) -> str:
@@ -349,7 +150,10 @@ def _yaml_str(s: str) -> str:
     if all(" " <= ch <= "~" for ch in s):
         return "'" + s.replace("'", "''") + "'"
     out = []
-    inverse = {v: k for k, v in _ESCAPES.items() if k not in " /\t"}
+    # the escapes PyYAML's emitter writes: the reader's, less those it
+    # only reads
+    inverse = {v: k for k, v in yamlread._ESCAPES.items()
+               if k not in " /\t"}
     for ch in s:
         if ch in inverse and ch != " ":
             out.append("\\" + inverse[ch])
@@ -410,14 +214,15 @@ def _coerce(name: str, value):
     return value
 
 
-def load_config(path_or_dict) -> PipelineConfig:
+def load_config(path_or_dict, strict: bool = False) -> PipelineConfig:
     """Load a PipelineConfig from a config file path or a dict.  Unknown
-    keys land in the config's `extra`, with a warning."""
+    keys raise KeyError in strict mode, else land in the config's `extra`,
+    with a warning."""
     if isinstance(path_or_dict, dict):
         raw = dict(path_or_dict)
     else:
         with open(path_or_dict) as f:
-            raw = parse_yaml_subset(f.read())
+            raw = yamlread.safe_load(f.read()) or {}
     known, unknown = {}, {}
     for k, v in raw.items():
         if k in _FIELDS:
@@ -425,6 +230,8 @@ def load_config(path_or_dict) -> PipelineConfig:
         else:
             unknown[k] = v
     if unknown:
+        if strict:
+            raise KeyError(f"unknown config keys: {sorted(unknown)}")
         warnings.warn(f"ignoring unknown config keys: {sorted(unknown)}")
     cfg = PipelineConfig(**known)
     object.__setattr__(cfg, "extra", unknown)

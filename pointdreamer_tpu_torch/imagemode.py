@@ -15,10 +15,12 @@ import numpy as np
 
 class ModeImage(NamedTuple):
     """Pixels in a PIL mode: "1" and "L" [H, W] uint8 ("1" holds 0 / 255),
-    "I;16" [H, W] uint16, "LA", "RGB", "RGBA", "RGBa" (alpha
-    premultiplied) and "CMYK" [H, W, C] uint8, "P" [H, W] uint8 indices
-    into `palette` [256, 3] uint8.  `transparency` is the index ("P") or
-    grey level ("L") that `convert("RGBA")` makes transparent, or None."""
+    "I;16" [H, W] uint16, "I" [H, W] int32, "F" [H, W] float32, "LA",
+    "RGB", "RGBA", "RGBa" (alpha premultiplied) and "CMYK" [H, W, C]
+    uint8, "P" [H, W] uint8 indices into `palette` [256, 3] uint8 (RGB)
+    or [256, 4] (an RGBA palette, as a TGA colour map of 16 or 32 bits
+    gives).  `transparency` is the index ("P") or grey level ("L") that
+    `convert("RGBA")` makes transparent, or None."""
     mode: str
     pixels: np.ndarray
     palette: Optional[np.ndarray] = None
@@ -52,15 +54,21 @@ def unpremultiply(rgba: np.ndarray) -> np.ndarray:
 
 def _grey(img: ModeImage) -> np.ndarray:
     p = img.pixels
-    if img.mode == "I;16":
-        return np.minimum(p, 255).astype(np.uint8)
+    if img.mode in ("I;16", "I"):
+        return np.clip(p, 0, 255).astype(np.uint8)
+    if img.mode == "F":
+        # Pillow's f2l: 0 at or below 0 (and for NaN), 255 at or above
+        # 255, else truncated
+        with np.errstate(invalid="ignore"):
+            v = np.where(p >= 255, 255, np.where(p > 0, p, 0))
+        return np.nan_to_num(v).astype(np.uint8)
     return p[..., 0] if img.mode == "LA" else p
 
 
 def to_rgb(img: ModeImage) -> np.ndarray:
     """PIL's `convert("RGB")`: uint8 [H, W, 3]."""
     m, p = img.mode, img.pixels
-    if m in ("1", "L", "I;16", "LA"):
+    if m in ("1", "L", "I;16", "I", "F", "LA"):
         out = np.repeat(_grey(img)[..., None], 3, -1)
     elif m == "RGB":
         out = p
@@ -71,7 +79,7 @@ def to_rgb(img: ModeImage) -> np.ndarray:
     elif m == "CMYK":
         out = cmyk_to_rgb(p)
     elif m == "P":
-        out = img.palette[p]
+        out = img.palette[p][..., :3]
     else:
         raise ValueError(f"no conversion from mode {m!r}")
     return np.ascontiguousarray(out)
@@ -86,6 +94,8 @@ def to_rgba(img: ModeImage) -> np.ndarray:
         return np.ascontiguousarray(p)
     if m == "RGBa":
         return unpremultiply(p)
+    if m == "P" and img.palette.shape[-1] == 4:
+        return np.ascontiguousarray(img.palette[p])
     if m == "LA":
         alpha = p[..., 1]
     elif img.transparency is not None and m in ("P", "L"):
@@ -99,16 +109,18 @@ def to_rgba(img: ModeImage) -> np.ndarray:
 def natural(img: ModeImage) -> np.ndarray:
     """The uint8 [H, W, C] array `io.load_image` returns: "1", "L" and
     "I;16" (clipped at 255) as grey [H, W, 1], grey + alpha where "L" has
-    a transparent level; "LA", "RGB" and "RGBA" as they are; "RGBa"
-    un-premultiplied; "CMYK" as RGB; "P" through its palette, RGBA when
-    it has a transparent index."""
+    a transparent level; "I" and "F" clipped to grey as convert("L") clips
+    them; "LA", "RGB" and "RGBA" as they are; "RGBa" un-premultiplied;
+    "CMYK" as RGB; "P" through its palette, RGBA when it has a transparent
+    index or an RGBA palette."""
     m = img.mode
     if m == "L" and img.transparency is not None:
         return to_rgba(img)[..., [0, 3]]
-    if m in ("1", "L", "I;16"):
+    if m in ("1", "L", "I;16", "I", "F"):
         return np.ascontiguousarray(_grey(img)[..., None])
     if m in ("LA", "RGB", "RGBA"):
         return img.pixels
-    if m == "RGBa" or (m == "P" and img.transparency is not None):
+    if m == "RGBa" or (m == "P" and (img.transparency is not None
+                                     or img.palette.shape[-1] == 4)):
         return to_rgba(img)
     return to_rgb(img)

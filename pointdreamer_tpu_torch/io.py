@@ -2,16 +2,19 @@
 
 Twin of pointdreamer_tpu's core/io.py without PIL or cv2.  PNGs are
 written with zlib + struct (8-bit, filter 0).  An image file is told
-apart by its content, as PIL's `Image.open` tells it (the extension only
-where the content matches no signature), and read with PIL 12.1's pixels
-in PIL's mode (`imagemode.ModeImage`): PNG (every colour type and depth,
-palettes and tRNS, Adam7), binary and ASCII PBM/PGM/PPM (maxval 255), BMP
-(palettes, RLE, 16/24/32-bit), JPEG (`jpeg.py`), GIF (`gif.py`), TIFF
-(`tiff.py`) and WebP (lossy, lossless, alpha, the first frame of an
-animation: `webp.py`).  `load_rgb` / `load_rgba` are PIL's
-convert("RGB") / convert("RGBA") from that mode.  Image writers take numpy
-arrays or torch tensors; a device tensor is quantized to uint8 on the
-device before the one host transfer.
+apart by its content, as PIL's `Image.open` tells it, trying its plugins
+in PIL's order (the extension only where the content matches no
+signature), and read with PIL 12.1's pixels in PIL's mode
+(`imagemode.ModeImage`): PNG (every colour type and depth, palettes and
+tRNS, Adam7), PBM/PGM/PPM at any maxval, PFM and PIL's own PNM variants,
+BMP (palettes, RLE, 16/24/32-bit) and bare DIB, JPEG (`jpeg.py`), GIF
+(`gif.py`), TIFF (`tiff.py`), WebP (lossy, lossless, alpha, the first
+frame of an animation: `webp.py`), TGA (`tga.py`), PCX (`pcx.py`), SGI
+(`sgi.py`), QOI (`qoi.py`), ICO and CUR (`ico.py`), MSP (`msp.py`) and
+XBM (`xbm.py`).  `load_rgb` / `load_rgba` are PIL's convert("RGB") /
+convert("RGBA") from that mode.  Image writers take numpy arrays or torch
+tensors; a device tensor is quantized to uint8 on the device before the
+one host transfer.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from . import ico, msp, pcx, qoi, sgi, tga, xbm
 from .gif import decode_gif
 from .imagemode import ModeImage, natural, of_array, to_rgb, to_rgba
 from .jpeg import decode_jpeg, decode_jpeg_image  # noqa: F401 (re-export)
@@ -486,31 +490,87 @@ def load_png(path: str) -> np.ndarray:
         return decode_png(f.read())
 
 
-def decode_pnm(data: bytes) -> ModeImage:
-    """PBM (P1, P4: mode "1"), PGM (P2, P5: "L") or PPM (P3, P6: "RGB")
-    bytes, maxval 255 for PGM and PPM, as PIL reads them (PBM's 1 is
-    black)."""
-    magic = data[:2]
-    if magic not in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6"):
-        raise ValueError(f"unsupported PNM type {magic!r}")
-    bitmap = magic in (b"P1", b"P4")
-    fields, pos = [], 2
-    while len(fields) < (2 if bitmap else 3):   # width, height, maxval
-        while data[pos:pos + 1].isspace():
+# PIL's PpmImagePlugin: the magic numbers it opens and their modes
+_PNM_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L",
+              b"P6": "RGB", b"P0CMYK": "CMYK", b"Pf": "F", b"PyP": "P",
+              b"PyRGBA": "RGBA", b"PyCMYK": "CMYK"}
+_PNM_BANDS = {"L": 1, "I": 1, "RGB": 3, "RGBA": 4, "CMYK": 4, "P": 1}
+_PNM_SPACE = b" \t\n\x0b\x0c\r"
+
+
+def _pnm_token(data: bytes, pos: int):
+    """PpmImageFile._read_token: skip leading whitespace, drop `#` comments
+    up to a CR or LF (also inside a token), end at whitespace (consumed);
+    at most 10 characters.  Returns (token, position after it)."""
+    tok = b""
+    while len(tok) <= 10:
+        c = data[pos:pos + 1]
+        pos += 1
+        if not c:
+            break
+        if c in _PNM_SPACE:
+            if not tok:
+                continue
+            break
+        if c == b"#":
+            while data[pos:pos + 1] not in (b"\r", b"\n", b""):
+                pos += 1
             pos += 1
-        if data[pos:pos + 1] == b"#":
-            pos = data.index(b"\n", pos) + 1
             continue
-        end = pos
-        while not data[end:end + 1].isspace():
-            end += 1
-        fields.append(int(data[pos:end]))
-        pos = end
-    w, h = fields[:2]
-    if bitmap:
+        tok += c
+    if not tok:
+        raise ValueError("PNM: reached the end of the file in the header")
+    if len(tok) > 10:
+        raise ValueError(f"PNM: header token too long: {tok!r}")
+    return tok, pos
+
+
+def _pnm_plain(data: bytes, pos: int, count: int, maxval: int,
+               out_max: int) -> np.ndarray:
+    """PpmPlainDecoder._decode_blocks: whitespace-separated decimal samples
+    (comments dropped), each round(v / maxval * out_max)."""
+    body = data[pos:]
+    while b"#" in body:
+        i = body.index(b"#")
+        ends = [j for j in (body.find(b"\n", i), body.find(b"\r", i))
+                if j >= 0]
+        body = body[:i] + (body[min(ends) + 1:] if ends else b"")
+    toks = body.split()[:count]
+    if len(toks) < count:
+        raise ValueError(f"PNM: {len(toks)} of {count} plain samples")
+    if any(len(t) > 10 for t in toks):
+        raise ValueError("PNM: a plain sample longer than 10 characters")
+    v = np.array([int(t) for t in toks], np.int64)
+    if (v > maxval).any():
+        raise ValueError(f"PNM: a sample above maxval {maxval}")
+    return np.round(v / maxval * out_max).astype(np.int64)
+
+
+def decode_pnm(data: bytes) -> ModeImage:
+    """PBM, PGM, PPM and PFM bytes as PIL 12.1's PpmImagePlugin reads them
+    (every magic number it opens: P1-P6, Pf and PIL's own P0CMYK, PyP,
+    PyRGBA, PyCMYK).  Bitmaps are mode "1" (PBM's 1 is black); maxval 255
+    is read as it is, any other maxval from 1 to 65535 scaled to 255 as
+    round(v / maxval * 255) (two big-endian bytes a sample above 255),
+    except a PGM above 255, which is mode "I" scaled to 65535 (as it is at
+    65535); `Pf` is mode "F", little-endian where its scale is negative,
+    rows bottom-up; `PyP` is mode "P" with PIL's empty (black) palette."""
+    magic, pos = b"", 0
+    while pos < min(len(data), 6) and data[pos:pos + 1] not in _PNM_SPACE:
+        magic += data[pos:pos + 1]
+        pos += 1
+    pos += 1                                    # the whitespace after it
+    mode = _PNM_MODES.get(magic)
+    if mode is None:
+        raise ValueError(f"not a PNM file (magic {magic!r})")
+    w_tok, pos = _pnm_token(data, pos)
+    h_tok, pos = _pnm_token(data, pos)
+    w, h = int(w_tok), int(h_tok)
+    plain = magic in (b"P1", b"P2", b"P3")
+    if mode == "1":
         if magic == b"P4":
             stride = (w + 7) // 8
-            rows = np.frombuffer(data, np.uint8, h * stride, pos + 1)
+            rows = np.frombuffer(data, np.uint8, h * stride, pos)
             bits = np.unpackbits(rows.reshape(h, stride), axis=1)[:, :w]
         else:
             body = b"".join(ln.split(b"#")[0]
@@ -520,17 +580,42 @@ def decode_pnm(data: bytes) -> ModeImage:
                 raise ValueError("PBM: bad or too few plain samples")
             bits = (np.frombuffer(body, np.uint8) - 48).reshape(h, w)
         return ModeImage("1", np.where(bits == 1, 0, 255).astype(np.uint8))
-    maxval = fields[2]
-    if maxval != 255:
-        raise ValueError(f"unsupported PNM maxval {maxval}")
-    c = 3 if magic in (b"P3", b"P6") else 1
-    if magic in (b"P5", b"P6"):                # one whitespace, then bytes
-        a = np.frombuffer(data, np.uint8, h * w * c, pos + 1)
+    if mode == "F":
+        scale_tok, pos = _pnm_token(data, pos)
+        scale = float(scale_tok)
+        if scale == 0 or not np.isfinite(scale):
+            raise ValueError("PFM: scale must be finite and non-zero")
+        a = np.frombuffer(data, "<f4" if scale < 0 else ">f4", h * w, pos)
+        return ModeImage("F", a.reshape(h, w)[::-1].astype(np.float32))
+    maxval_tok, pos = _pnm_token(data, pos)
+    maxval = int(maxval_tok)
+    if not 0 < maxval < 65536:
+        raise ValueError("PNM: maxval must be greater than 0 and less than "
+                         "65536")
+    if maxval > 255 and mode == "L":
+        mode = "I"
+    c = _PNM_BANDS[mode]
+    out_max = 65535 if mode == "I" else 255
+    n = h * w * c
+    if plain:
+        v = _pnm_plain(data, pos, n, maxval, out_max)
     else:
-        body = b" ".join(ln.split(b"#")[0]
-                         for ln in data[pos:].splitlines())
-        a = np.array(body.split()[:h * w * c], np.int64).astype(np.uint8)
-    return of_array(a.reshape(h, w, c).copy())
+        wide = maxval > 255
+        if len(data) - pos < n * (2 if wide else 1):
+            raise ValueError("PNM: image data is truncated")
+        v = np.frombuffer(data, ">u2" if wide else np.uint8, n,
+                          pos).astype(np.int64)
+        if not (maxval == 255 or (maxval == 65535 and mode == "I")):
+            v = np.minimum(out_max, np.round(v / maxval * out_max)).astype(
+                np.int64)
+    if mode == "I":
+        return ModeImage("I", v.reshape(h, w).astype(np.int32))
+    v = v.astype(np.uint8).reshape(h, w, c)
+    if mode == "P":
+        return ModeImage("P", v[..., 0].copy(), np.zeros((256, 3), np.uint8))
+    if mode == "CMYK":
+        return ModeImage("CMYK", v)
+    return of_array(v)
 
 
 # 32-bit BI_BITFIELDS masks (r, g, b, a) PIL reads, and their channel
@@ -602,12 +687,13 @@ def _bmp_rle(data: bytes, pos: int, w: int, h: int, rle4: bool) -> bytes:
     return bytes(out[:w * h])
 
 
-def decode_bmp(data: bytes) -> np.ndarray:
+def decode_bmp(data: bytes, raw_alpha: bool = False) -> np.ndarray:
     """BMP bytes -> uint8 [H,W,3] (or [H,W,4] for the 32-bit bit-field
-    layouts with alpha), row 0 at the top, as PIL reads them: 1, 4 and
-    8-bit palettes, RLE8 and RLE4, 16-bit 5-5-5 and 5-6-5, 24 and 32-bit
-    (alpha dropped unless bit fields name it); core (OS/2) and info
-    headers."""
+    layouts with alpha, and for uncompressed 32-bit pixels with
+    `raw_alpha`, as PIL reads a cursor's), row 0 at the top, as PIL reads
+    them: 1, 4 and 8-bit palettes, RLE8 and RLE4, 16-bit 5-5-5 and 5-6-5,
+    24 and 32-bit (alpha dropped unless bit fields name it); core (OS/2)
+    and info headers."""
     if data[:2] != b"BM":
         raise ValueError("not a BMP")
     offset, hsize = struct.unpack_from("<II", data, 10)
@@ -633,7 +719,7 @@ def decode_bmp(data: bytes) -> np.ndarray:
     if offset == 14 + hsize and bpp <= 8:
         offset += 4 * colors
     raw_mode = {1: "P", 4: "P", 8: "P", 16: "BGR;15", 24: "BGR",
-                32: "BGRX"}[bpp]
+                32: "BGRA" if raw_alpha and comp == 0 else "BGRX"}[bpp]
     if comp == 3:                                # BI_BITFIELDS
         if hsize >= 52:
             masks = struct.unpack_from("<IIII", data, hp + 36)
@@ -727,19 +813,41 @@ def _webp_image(data: bytes) -> ModeImage:
     return of_array(decode_webp(data))
 
 
-# the leading bytes PIL's plugins accept (WebP's RIFF header aside), and
-# the decoder of each
-_SIGNATURES = (
-    ((b"BM",), "BMP", _bmp_image),
-    ((b"GIF87a", b"GIF89a"), "GIF", decode_gif),
-    ((b"\xff\xd8\xff",), "JPEG", decode_jpeg_image),
-    ((_PNG_SIG,), "PNG", _png_image),
-    ((b"P1", b"P2", b"P3", b"P4", b"P5", b"P6"), "PNM", decode_pnm),
-    ((b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"), "TIFF",
-     decode_tiff),
+def _pnm_accepts(data: bytes) -> bool:
+    """PpmImagePlugin's prefix and a magic number it opens."""
+    magic = data[:6]
+    for i, c in enumerate(magic):
+        if c in _PNM_SPACE:
+            magic = magic[:i]
+            break
+    return magic in _PNM_MODES
+
+
+# PIL's plugins in the order `Image.open` tries them (its preinit plugins,
+# then the rest by module name), each with the test that makes it take a
+# file (its accept function and the header checks of its _open whose
+# failure sends PIL on to the next plugin) and the decoder here
+_PLUGINS = (
+    ("BMP", lambda d: d[:2] == b"BM", _bmp_image),
+    ("DIB", ico.dib_accepts, ico.decode_dib),
+    ("GIF", lambda d: d[:6] in (b"GIF87a", b"GIF89a"), decode_gif),
+    ("JPEG", lambda d: d[:3] == b"\xff\xd8\xff", decode_jpeg_image),
+    ("PNM", _pnm_accepts, decode_pnm),
+    ("PNG", lambda d: d[:8] == _PNG_SIG, _png_image),
+    ("CUR", ico.cur_accepts, ico.decode_cur),
+    ("PCX", pcx.accepts, pcx.decode_pcx),
+    ("ICO", ico.ico_accepts, ico.decode_ico),
+    ("TIFF", lambda d: d[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00",
+                                 b"MM\x00+"), decode_tiff),
+    ("MSP", msp.header_ok, msp.decode_msp),
+    ("QOI", qoi.accepts, qoi.decode_qoi),
+    ("SGI", sgi.accepts, sgi.decode_sgi),
+    ("TGA", tga.header_ok, tga.decode_tga),
+    ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP",
+     _webp_image),
+    ("XBM", xbm.accepts, xbm.decode_xbm),
 )
-_BY_TYPE = {name: dec for _, name, dec in _SIGNATURES}
-_BY_TYPE["WEBP"] = _webp_image
+_BY_TYPE = {name: dec for name, _, dec in _PLUGINS}
 # where the content matches no signature, the extension names the decoder
 _EXTENSIONS = {".png": _png_image, ".ppm": decode_pnm,
                ".pgm": decode_pnm, ".pbm": decode_pnm,
@@ -750,12 +858,12 @@ _EXTENSIONS = {".png": _png_image, ".ppm": decode_pnm,
 
 
 def image_type(data: bytes) -> str:
-    """The format the content says ("PNG", "JPEG", "GIF", "TIFF", "BMP",
-    "WEBP", "PNM"), as PIL's `Image.open` picks its plugin; "" if none."""
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "WEBP"
-    for sigs, name, _ in _SIGNATURES:
-        if data.startswith(sigs):
+    """The format the content says, as PIL's `Image.open` picks its plugin
+    (its `format`, but "PNM" for PIL's "PPM"): "BMP", "DIB", "GIF",
+    "JPEG", "PNM", "PNG", "CUR", "PCX", "ICO", "TIFF", "MSP", "QOI",
+    "SGI", "TGA", "WEBP" or "XBM"; "" if none."""
+    for name, takes, _ in _PLUGINS:
+        if takes(data):
             return name
     return ""
 
@@ -781,12 +889,10 @@ def read_image(path: str) -> ModeImage:
 
 
 def load_image(path: str) -> np.ndarray:
-    """A PNG, JPEG (baseline, progressive, arithmetic, lossless; grey, RGB,
-    CMYK and YCCK: `jpeg.py`), GIF (`gif.py`), TIFF (`tiff.py`), BMP, WebP
-    (`webp.py`) or PBM/PGM/PPM file, told apart by content as PIL tells
-    them -> uint8 [H,W,C]: grey (C 1), grey + alpha (2), RGB (3) or RGBA
-    (4), palettes expanded (`imagemode.natural`), each bit for bit what PIL
-    12.1 decodes.  Where PIL fails, this raises."""
+    """An image file of any type `image_type` names, told apart by content
+    as PIL tells them -> uint8 [H,W,C]: grey (C 1), grey + alpha (2), RGB
+    (3) or RGBA (4), palettes expanded (`imagemode.natural`), each bit for
+    bit what PIL 12.1 decodes.  Where PIL fails, this raises."""
     return natural(read_image(path))
 
 

@@ -450,20 +450,27 @@ def read_jpeg(data: bytes) -> dict:
                 jfif=jfif)
 
 
+def jpeg_planes(data: bytes):
+    """JPEG bytes -> (read_jpeg's dict, a uint8 plane a component): for a
+    DCT frame each at the image's size (IDCT, smoothing, fancy
+    upsampling), before any colour conversion; for a lossless frame each
+    at its own sampled size."""
+    j = read_jpeg(data)
+    frame, qt, coefs = j["frame"], j["qt"], j["coefs"]
+    if frame["lossless"]:
+        return j, [p[:c["h_px"], :c["w"]] for c, p in zip(frame["comps"],
+                                                            coefs)]
+    if frame["progressive"] and smoothing_applies(frame, qt):
+        coefs = smooth_blocks(frame, qt, coefs)
+    return j, _planes(frame, coefs, qt)
+
+
 def decode_jpeg_image(data: bytes) -> ModeImage:
     """JPEG bytes -> the image in PIL's mode: "L", "RGB" or "CMYK" (PIL's
     rawmode "CMYK;I": libjpeg's CMYK output inverted), as libjpeg-turbo
     decodes it (see the module docstring)."""
-    j = read_jpeg(data)
-    frame, qt, coefs = j["frame"], j["qt"], j["coefs"]
-    if frame["lossless"]:
-        planes = [p[:c["h_px"], :c["w"]] for c, p in zip(frame["comps"],
-                                                           coefs)]
-    else:
-        if frame["progressive"] and smoothing_applies(frame, qt):
-            coefs = smooth_blocks(frame, qt, coefs)
-        planes = _planes(frame, coefs, qt)
-    return _colour(frame, planes, j["adobe"], j["jfif"])
+    j, planes = jpeg_planes(data)
+    return _colour(j["frame"], planes, j["adobe"], j["jfif"])
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:

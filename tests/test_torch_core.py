@@ -18,6 +18,7 @@ from pointdreamer_tpu.core import io as jio
 from pointdreamer_tpu_torch import camera as tcam
 from pointdreamer_tpu_torch import config as tcfg
 from pointdreamer_tpu_torch import io as tio
+from pointdreamer_tpu_torch import yamlread
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))
@@ -33,7 +34,7 @@ def test_config_matches_jax_loader(path):
 
 
 def test_config_subset_parser_scalars():
-    got = tcfg.parse_yaml_subset(
+    got = yamlread.safe_load(
         "a: 'x'  # c\nb: True\nc: None\nd: [21, 11]\ne: 1.5\nf: 1e-2\n"
         "g: ~\nh: \"q # not a comment\"\n")
     assert got == {"a": "x", "b": True, "c": "None", "d": [21, 11],

@@ -266,14 +266,19 @@ def _pack_rows(samples, bits, order):
 
 def tiff_file(samples, photometric, bits, order="<", big=False, extra=(),
               planar=1, tile=None, rows_per_strip=None, compression=1,
-              predictor=1, colormap=None, extra_tags=None):
-    """A one-page TIFF of samples [H, W, spp] (ints)."""
+              predictor=1, colormap=None, extra_tags=None, encode=None,
+              sample_dtype=None):
+    """A one-page TIFF of samples [H, W, spp] (ints; or of `sample_dtype`,
+    such as "i4" or "f4", packed in the file's byte order), each chunk
+    compressed by `encode` where given."""
     H, W, spp = samples.shape
-    enc = {1: lambda b: b, 32773: packbits, 5: tiff_lzw,
-           8: lambda b: zlib.compress(b), 32946: lambda b: zlib.compress(b)}[
-        compression]
+    enc = encode or {1: lambda b: b, 32773: packbits, 5: tiff_lzw,
+                     8: lambda b: zlib.compress(b),
+                     32946: lambda b: zlib.compress(b)}[compression]
 
     def chunk_bytes(s):
+        if sample_dtype is not None:
+            return enc(s.astype(order + sample_dtype).tobytes())
         s = s.astype(np.int64)
         if predictor == 2:
             dt = np.uint16 if bits == 16 else np.uint8
@@ -780,14 +785,24 @@ def test_tiff_lzw_writer_round_trips():
     (274, 6, "Orientation 6"),
     (339, 3, "SampleFormat"),
 ])
-def test_tiff_unsupported_raise_naming_tag(tag, value, match):
+def test_tiff_unsupported_raise_naming_tag(tag, value, match, tmp_path):
+    # each of these tags was refused; PIL 12.1 reads the CMYK, YCbCr,
+    # FillOrder 2 and Orientation 6 pages (YCbCr uncompressed as its raw
+    # reader misreads it, as RGBX), and the port reads them bit-equal; the
+    # rest PIL refuses, and the port raises naming the tag
     img = _image(16, 8, 6).astype(np.int64)
     spp = {(262, 5): 4}.get((tag, value), 3)
     samples = np.concatenate([img, img[..., :1]], -1)[..., :spp]
     data = tiff_file(samples, 2, 8, compression=5 if tag == 317 else 1,
                      extra_tags={tag: (3, [value])})
-    with pytest.raises(NotImplementedError, match=match):
-        ttiff.decode_tiff(data)
+    try:
+        Image.open(io.BytesIO(data)).load()
+    except Exception:
+        with pytest.raises((NotImplementedError, ValueError), match=match):
+            ttiff.decode_tiff(data)
+    else:
+        assert (tag, value) in ((262, 5), (262, 6), (266, 2), (274, 6))
+        assert_reads_as_pil(_write(tmp_path, "a.tif", data))
 
 
 @pytest.mark.parametrize("case", ["bigtiff_be", "planar16", "grey16_white_be",
