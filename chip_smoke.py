@@ -274,6 +274,21 @@ Phases (each prints its own lines; any failure exits non-zero):
                 merge keys, block scalars and tags load to the
                 PipelineConfig of their plain twin; strict=True raises on
                 their unknown keys.
+ 16. rest     : the rest of PIL 12.1's readers (bcn.py, dds.py, psd.py,
+                icns.py, blp.py, im.py, spider.py, fits.py, xpm.py,
+                fli.py, sun.py, dcx.py, pcd.py, iptc.py, smallimg.py,
+                refused.py; host code).  (a) every fixture under
+                tests/data/{dds,blp,psd,icns,im,sci,xpm,fli,sun,dcx,pcd,
+                small,restore17} against its committed PIL decode
+                (convert("RGBA")) and, for "F", "I" and "I;16*", its
+                committed pixels, bit for bit; host seconds by detected
+                type.  (b) cli/ddnm_restore over tests/data/restore17 (a
+                PackBits PSD, a BC7 and a DXT1 DDS, a BLP2 palette, an
+                IM, an RLE SUN, an FLI and a float FITS, under the
+                dataset's extensions), as phase 15 (b), K2 = 1600; then
+                --image on a 256x256 PackBits PSD, K2 = 1600.  (c) JPEG
+                2000, MPEG, WMF, BUFR, GRIB and HDF5 headers are named as
+                PIL names them and raise naming the type.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -3566,6 +3581,144 @@ def readers_phase(dev, work: str, steps: int = 100) -> None:
         fail(f"configs: {results}")
 
 
+
+# ---- phase 16: the rest of PIL's readers ---------------------------------
+
+# the fixture folders of this phase under tests/data; each file's PIL
+# decode (convert("RGBA")) is `<stem>_pil.png` beside it, and its pixels
+# `<stem>_pil.npy` where PNG cannot hold its mode ("F", "I", "I;16*")
+REST_DIRS = ("dds", "blp", "psd", "icns", "im", "sci", "xpm", "fli", "sun",
+             "dcx", "pcd", "small", "restore17")
+REST_TYPES = {"DDS", "FTEX", "BLP", "PSD", "ICNS", "IM", "IMT", "SPIDER",
+              "FITS", "XPM", "FLI", "SUN", "DCX", "PCD", "GBR", "MCIDAS",
+              "PIXAR", "XVThumb", "IPTC"}
+# files PIL identifies and the port refuses: (bytes, type, exception)
+REFUSED = (
+    (b"\xff\x4f\xff\x51\x00\x2f" + bytes(60), "JPEG2000",
+     NotImplementedError),
+    (b"\x00\x00\x01\xb3\x02\x00\x18" + bytes(20), "MPEG", OSError),
+    (b"\xd7\xcd\xc6\x9a\x00\x00" + bytes(4) + b"\x90\x01\x2c\x01"
+     + b"\xa0\x05" + bytes(6) + b"\x01\x00\t\x00" + bytes(18), "WMF",
+     OSError),
+    (b"BUFR" + bytes(40), "BUFR", OSError),
+    (b"GRIB\0\0\0\x01" + bytes(40), "GRIB", OSError),
+    (b"\x89HDF\r\n\x1a\n" + bytes(40), "HDF5", OSError),
+)
+
+
+def rest_readers_phase(dev, work: str, steps: int = 100) -> None:
+    """Phase 16: every fixture of the rest of PIL's readers against its
+    committed PIL decode (and native pixels); the restore CLI over
+    tests/data/restore17 (files only these readers decode, under the
+    dataset's extensions) and --image on a 256x256 PackBits PSD; the
+    identified formats the port refuses."""
+    import numpy as np
+
+    from pointdreamer_tpu_torch import io as pio
+    from pointdreamer_tpu_torch.models.diffusion import datasets
+
+    data = os.path.join(REPO, "tests", "data")
+    # (a) the fixtures, bit for bit, host seconds by type
+    t0 = time.perf_counter()
+    secs, counts = {}, {}
+    bad = []
+    for sub in REST_DIRS:
+        for f in sorted(os.listdir(os.path.join(data, sub))):
+            if f.endswith(("_pil.png", "_pil.npy")):
+                continue
+            path = os.path.join(data, sub, f)
+            stem = os.path.join(data, sub, os.path.splitext(f)[0])
+            with open(path, "rb") as fh:
+                raw = fh.read()
+            kind = pio.image_type(raw)
+            t1 = time.perf_counter()
+            img = pio.decode_image(raw, path)
+            got = pio.to_rgba(img)
+            secs[kind] = secs.get(kind, 0.0) + time.perf_counter() - t1
+            counts[kind] = counts.get(kind, 0) + 1
+            want = pio.load_png(stem + "_pil.png")
+            ok = got.shape == want.shape and bool((got == want).all())
+            if os.path.exists(stem + "_pil.npy"):
+                px = np.load(stem + "_pil.npy")
+                ok &= img.pixels.shape == px.shape and np.array_equal(
+                    img.pixels, px, equal_nan=px.dtype.kind == "f")
+            if not ok:
+                bad.append(f"{sub}/{f}")
+    print("[rest] " + ", ".join(
+        f"{counts[k]} {k} in {secs[k]:.3f} s" for k in sorted(secs))
+        + f" (host; {time.perf_counter() - t0:.3f} s in all), each "
+        "bit-equal to its committed PIL decode")
+    if bad or set(counts) != REST_TYPES:
+        fail(f"rest fixtures: {bad} differ; types {sorted(counts)}")
+
+    # (b) the restore CLI: the folder of 8, then --image on a PSD
+    src = os.path.join(work, "phase16_in")
+    os.makedirs(src, exist_ok=True)
+    names = sorted(f for f in os.listdir(os.path.join(data, "restore17"))
+                   if not f.endswith(("_pil.png", "_pil.npy")))
+    for f in names:
+        shutil.copy(os.path.join(data, "restore17", f), os.path.join(src, f))
+    out = os.path.join(work, "phase16_out")
+    fed, runs, wall, launches = _restore_run(
+        ["--image_dir", src, "--dataset", "IMAGENET", "--deg", "sr4",
+         "--batch", "8", "--steps", str(steps), "--out", out])
+    same = bool(fed)
+    for fnames, imgs in fed:
+        want = np.stack([datasets.center_crop_arr(pio.load_png(os.path.join(
+            data, "restore17", os.path.splitext(os.path.basename(n))[0]
+            + "_pil.png"))[..., :3], 256).astype(np.float32) / 255.0
+            for n in fnames])
+        same &= imgs.shape == want.shape and bool((imgs == want).all())
+    kinds = sorted(pio.image_type(open(os.path.join(src, f), "rb").read())
+                   for f in names)
+    print(f"[rest] ddnm_restore --image_dir over {len(names)} files "
+          f"({', '.join(kinds)} under .png, .jpg, .jpeg, .bmp, .webp and "
+          f".ppm names), IMAGENET, sr4, batch 8, {steps} steps: "
+          f"{wall:.3f} s; fed batch equal to the PIL-decoded batch: {same}")
+    if not same or len(names) != 8:
+        fail("restore: the dataset's batch differs from the batch of the "
+             "committed PIL decodes")
+    _check_restore("folder", runs, launches, len(names), steps,
+                   sorted(os.listdir(out)) if os.path.isdir(out) else [],
+                   sorted(f"{os.path.splitext(n)[0]}{s}.png" for n in names
+                          for s in ("", "_degraded")), tag="rest")
+    path = os.path.join(data, "psd", "restore_256.psd")
+    out_png = os.path.join(work, "phase16_psd", "out.png")
+    os.makedirs(os.path.dirname(out_png), exist_ok=True)
+    fed, runs, wall, launches = _restore_run(
+        ["--image", path, "--dataset", "IMAGENET", "--deg", "sr4",
+         "--steps", str(steps), "--out", out_png])
+    want = pio.load_png(os.path.join(data, "psd", "restore_256_pil.png"))
+    want = want[..., :3].astype(np.float32)[None] / 255.0
+    same = len(fed) == 1 and fed[0][1].shape == want.shape and bool(
+        (fed[0][1] == want).all())
+    print(f"[rest] ddnm_restore --image restore_256.psd (256x256, RGB "
+          f"PackBits PSD), sr4, {steps} steps: {wall:.3f} s; fed image "
+          f"equal to its PIL decode: {same}")
+    if not same:
+        fail("restore --image restore_256.psd: the fed image differs from "
+             "its committed PIL decode")
+    _check_restore("restore_256.psd", runs, launches, 1, steps,
+                   sorted(os.listdir(os.path.dirname(out_png))),
+                   ["out.png", "out_degraded.png"], tag="rest")
+
+    # (c) the formats identified and refused
+    results = {}
+    for raw, kind, exc in REFUSED:
+        named = pio.image_type(raw)
+        try:
+            pio.decode_image(raw, "x.png")
+            raised = ""
+        except exc as e:
+            raised = type(e).__name__ if kind in str(e) else ""
+        results[kind] = (named, raised)
+    print(f"[rest] refused formats (type named, exception naming it): "
+          f"{json.dumps(results)}")
+    if any(named != kind or not raised
+           for kind, (named, raised) in results.items()):
+        fail(f"refused formats: {results}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4008,6 +4161,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     readers_phase(dev, work)
     print(f"[readers] phase 15 {time.perf_counter() - t15:.2f} s")
+
+    # ---- 16. the rest of PIL's readers ---------------------------------
+    t16 = time.perf_counter()
+    torch.cuda.empty_cache()
+    rest_readers_phase(dev, work)
+    print(f"[rest] phase 16 {time.perf_counter() - t16:.2f} s")
 
     print(card)
     print(json.dumps({"kernels": table}))

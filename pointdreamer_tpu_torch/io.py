@@ -2,19 +2,25 @@
 
 Twin of pointdreamer_tpu's core/io.py without PIL or cv2.  PNGs are
 written with zlib + struct (8-bit, filter 0).  An image file is told
-apart by its content, as PIL's `Image.open` tells it, trying its plugins
-in PIL's order (the extension only where the content matches no
-signature), and read with PIL 12.1's pixels in PIL's mode
-(`imagemode.ModeImage`): PNG (every colour type and depth, palettes and
-tRNS, Adam7), PBM/PGM/PPM at any maxval, PFM and PIL's own PNM variants,
-BMP (palettes, RLE, 16/24/32-bit) and bare DIB, JPEG (`jpeg.py`), GIF
-(`gif.py`), TIFF (`tiff.py`), WebP (lossy, lossless, alpha, the first
-frame of an animation: `webp.py`), TGA (`tga.py`), PCX (`pcx.py`), SGI
-(`sgi.py`), QOI (`qoi.py`), ICO and CUR (`ico.py`), MSP (`msp.py`) and
-XBM (`xbm.py`).  `load_rgb` / `load_rgba` are PIL's convert("RGB") /
-convert("RGBA") from that mode.  Image writers take numpy arrays or torch
-tensors; a device tensor is quantized to uint8 on the device before the
-one host transfer.
+apart by its content, as PIL's `Image.open` tells it: every plugin of PIL
+12.1's `Image.ID`, in its order, with the header checks of each plugin's
+`_open` whose failure sends PIL on to the next one (the extension only
+where no plugin takes the content).  It is read with PIL 12.1's pixels in
+PIL's mode (`imagemode.ModeImage`): PNG (every colour type and depth,
+palettes and tRNS, Adam7), PBM/PGM/PPM at any maxval, PFM and PIL's own
+PNM variants, BMP (palettes, RLE, 16/24/32-bit) and bare DIB, JPEG
+(`jpeg.py`), GIF (`gif.py`), TIFF (`tiff.py`), WebP (`webp.py`), TGA
+(`tga.py`), PCX and DCX (`pcx.py`, `dcx.py`), SGI (`sgi.py`), QOI
+(`qoi.py`), ICO and CUR (`ico.py`), MSP (`msp.py`), XBM (`xbm.py`), DDS
+and FTEX with BC1-BC7 (`dds.py`, `bcn.py`), PSD (`psd.py`), ICNS
+(`icns.py`), BLP (`blp.py`), IM and IMT (`im.py`), SPIDER (`spider.py`),
+FITS (`fits.py`), XPM (`xpm.py`), FLI (`fli.py`), SUN (`sun.py`), PCD
+(`pcd.py`), IPTC (`iptc.py`), GBR, McIdas, PIXAR and XV thumbnails
+(`smallimg.py`).  JPEG 2000, AVIF, EPS, MPEG, WMF, BUFR, GRIB and HDF5
+are identified and refused (`refused.py`).  `load_rgb` / `load_rgba` are
+PIL's convert("RGB") / convert("RGBA") from that mode.  Image writers take
+numpy arrays or torch tensors; a device tensor is quantized to uint8 on
+the device before the one host transfer.
 """
 from __future__ import annotations
 
@@ -27,9 +33,11 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from . import ico, msp, pcx, qoi, sgi, tga, xbm
+from . import (blp, dcx, dds, fits, fli, icns, ico, im, iptc, msp, pcd, pcx,
+               psd, qoi, refused, sgi, smallimg, spider, sun, tga, xbm, xpm)
 from .gif import decode_gif
-from .imagemode import ModeImage, natural, of_array, to_rgb, to_rgba
+from .imagemode import (ModeImage, NotThisFormat, natural, of_array, to_rgb,
+                        to_rgba)
 from .jpeg import decode_jpeg, decode_jpeg_image  # noqa: F401 (re-export)
 from .tiff import decode_tiff
 from .webp import decode_webp
@@ -823,10 +831,34 @@ def _pnm_accepts(data: bytes) -> bool:
     return magic in _PNM_MODES
 
 
-# PIL's plugins in the order `Image.open` tries them (its preinit plugins,
-# then the rest by module name), each with the test that makes it take a
-# file (its accept function and the header checks of its _open whose
-# failure sends PIL on to the next plugin) and the decoder here
+def _opens(probe):
+    """A plugin's test from its header probe: False where the probe fails
+    as PIL's `_open` does when PIL goes on to the next plugin (the
+    exceptions `Image.open` catches, or `NotThisFormat`), True where it
+    passes or fails otherwise (PIL then raises: the file is that
+    plugin's, and its decoder raises the same error)."""
+    def opens(data: bytes) -> bool:
+        try:
+            probe(data)
+        except (NotThisFormat, SyntaxError, IndexError, TypeError, KeyError,
+                EOFError, struct.error):
+            return False
+        except Exception:
+            return True
+        return True
+    return opens
+
+
+def _when(accepts, probe):
+    """PIL's `_accept` on the first 16 bytes, then its `_open` checks."""
+    opens = _opens(probe)
+    return lambda d: bool(accepts(d[:16])) and opens(d)
+
+
+# PIL 12.1's plugins in the order `Image.open` tries them (`Image.ID`: its
+# preinit plugins, then the rest by module name), each with the test that
+# makes it take a file and the decoder here; the name is PIL's `format`
+# ("PNM" for PIL's "PPM")
 _PLUGINS = (
     ("BMP", lambda d: d[:2] == b"BM", _bmp_image),
     ("DIB", ico.dib_accepts, ico.decode_dib),
@@ -834,18 +866,51 @@ _PLUGINS = (
     ("JPEG", lambda d: d[:3] == b"\xff\xd8\xff", decode_jpeg_image),
     ("PNM", _pnm_accepts, decode_pnm),
     ("PNG", lambda d: d[:8] == _PNG_SIG, _png_image),
+    ("AVIF", _opens(refused.avif_probe), refused.not_decoded("AVIF")),
+    ("BLP", _when(blp.accepts, blp.probe), blp.decode_blp),
+    ("BUFR", refused.bufr_accepts, refused.stub_refused("BUFR")),
     ("CUR", ico.cur_accepts, ico.decode_cur),
-    ("PCX", pcx.accepts, pcx.decode_pcx),
+    ("PCX", _opens(pcx.probe), pcx.decode_pcx),
+    ("DCX", _opens(dcx.probe), dcx.decode_dcx),
+    ("DDS", _when(dds.accepts, dds.probe), dds.decode_dds),
+    ("EPS", _when(refused.eps_accepts, refused.eps_probe),
+     refused.eps_refused),
+    ("FITS", _when(fits.accepts, fits.probe), fits.decode_fits),
+    ("FLI", _when(fli.accepts, fli.probe), fli.decode_fli),
+    ("FTEX", _when(dds.ftex_accepts, dds.ftex_probe), dds.decode_ftex),
+    ("GBR", _when(smallimg.gbr_accepts, smallimg.gbr_probe),
+     smallimg.decode_gbr),
+    ("GRIB", refused.grib_accepts, refused.stub_refused("GRIB")),
+    ("HDF5", refused.hdf5_accepts, refused.stub_refused("HDF5")),
+    ("JPEG2000", refused.jpeg2000_accepts,
+     refused.not_decoded("JPEG2000")),
+    ("ICNS", _when(icns.accepts, icns.probe), icns.decode_icns),
     ("ICO", ico.ico_accepts, ico.decode_ico),
+    ("IM", _opens(im.probe), im.decode_im),
+    ("IMT", _opens(im.imt_probe), im.decode_imt),
+    ("IPTC", _opens(iptc.probe), iptc.decode_iptc),
+    ("MCIDAS", _when(smallimg.mcidas_accepts, smallimg.mcidas_probe),
+     smallimg.decode_mcidas),
+    ("MPEG", _opens(refused.mpeg_probe), refused.mpeg_refused),
     ("TIFF", lambda d: d[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00",
                                  b"MM\x00+"), decode_tiff),
     ("MSP", msp.header_ok, msp.decode_msp),
+    ("PCD", _opens(pcd.probe), pcd.decode_pcd),
+    ("PIXAR", _when(smallimg.pixar_accepts, smallimg.pixar_probe),
+     smallimg.decode_pixar),
+    ("PSD", _when(psd.accepts, psd.probe), psd.decode_psd),
     ("QOI", qoi.accepts, qoi.decode_qoi),
     ("SGI", sgi.accepts, sgi.decode_sgi),
+    ("SPIDER", _opens(spider.probe), spider.decode_spider),
+    ("SUN", _when(sun.accepts, sun.probe), sun.decode_sun),
     ("TGA", tga.header_ok, tga.decode_tga),
     ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP",
      _webp_image),
+    ("WMF", _opens(refused.wmf_probe), refused.stub_refused("WMF")),
     ("XBM", xbm.accepts, xbm.decode_xbm),
+    ("XPM", _when(xpm.accepts, xpm.probe), xpm.decode_xpm),
+    ("XVThumb", _when(smallimg.xv_accepts, smallimg.xv_probe),
+     smallimg.decode_xv),
 )
 _BY_TYPE = {name: dec for name, _, dec in _PLUGINS}
 # where the content matches no signature, the extension names the decoder
@@ -858,10 +923,9 @@ _EXTENSIONS = {".png": _png_image, ".ppm": decode_pnm,
 
 
 def image_type(data: bytes) -> str:
-    """The format the content says, as PIL's `Image.open` picks its plugin
-    (its `format`, but "PNM" for PIL's "PPM"): "BMP", "DIB", "GIF",
-    "JPEG", "PNM", "PNG", "CUR", "PCX", "ICO", "TIFF", "MSP", "QOI",
-    "SGI", "TGA", "WEBP" or "XBM"; "" if none."""
+    """The format the content says, as PIL's `Image.open` picks its plugin:
+    its `format` ("PNM" for PIL's "PPM"), one of the names of `_PLUGINS`;
+    "" if no plugin takes it."""
     for name, takes, _ in _PLUGINS:
         if takes(data):
             return name

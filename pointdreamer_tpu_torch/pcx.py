@@ -9,6 +9,8 @@
   bytes-per-line differs from it, and the planes moved together before
   they are unpacked as PcxDecode.c moves them (runs that run past a line
   are an error).
+
+`decode_pcx` takes the header's offset, for DCX (`dcx.py`).
 """
 from __future__ import annotations
 
@@ -16,11 +18,22 @@ import struct
 
 import numpy as np
 
-from .imagemode import ModeImage
+from .imagemode import ModeImage, NotThisFormat
 
 
 def accepts(data: bytes) -> bool:
     return len(data) >= 2 and data[0] == 10 and data[1] in (0, 2, 3, 5)
+
+
+def probe(data: bytes, start: int = 0) -> None:
+    """PcxImageFile._open's checks before it commits: the signature and
+    a positive size (a header too short to hold it is not a PCX)."""
+    head = data[start:start + 68]
+    if not accepts(head) or len(head) < 12:
+        raise NotThisFormat("not a PCX file")
+    x0, y0, x1, y1 = struct.unpack_from("<HHHH", head, 4)
+    if x1 + 1 <= x0 or y1 + 1 <= y0:
+        raise NotThisFormat("bad PCX image size")
 
 
 def _rows(data: bytes, pos: int, h: int, nbytes: int) -> np.ndarray:
@@ -50,23 +63,25 @@ def _rows(data: bytes, pos: int, h: int, nbytes: int) -> np.ndarray:
     return np.frombuffer(bytes(out[:need]), np.uint8).reshape(h, nbytes)
 
 
-def decode_pcx(data: bytes) -> ModeImage:
-    """PCX bytes -> the image in PIL's mode (see the module docstring)."""
-    if not accepts(data) or len(data) < 128:
-        raise ValueError("not a PCX file")
-    x0, y0, x1, y1 = struct.unpack_from("<HHHH", data, 4)
+def decode_pcx(data: bytes, start: int = 0) -> ModeImage:
+    """PCX bytes (the header at `start`) -> the image in PIL's mode (see
+    the module docstring)."""
+    probe(data, start)
+    if len(data) - start < 128:
+        raise ValueError("PCX: truncated header")
+    x0, y0, x1, y1 = struct.unpack_from("<HHHH", data, start + 4)
     w, h = x1 + 1 - x0, y1 + 1 - y0
-    if w <= 0 or h <= 0:
-        raise ValueError("PCX: bad image size")
-    version, bits, planes = data[1], data[3], data[65]
-    provided, = struct.unpack_from("<H", data, 66)
+    version, bits, planes = data[start + 1], data[start + 3], data[
+        start + 65]
+    provided, = struct.unpack_from("<H", data, start + 66)
     palette = None
     if bits == 1 and planes == 1:
         mode = "1"
     elif bits == 1 and planes in (2, 4):
         mode = "P"
         palette = np.zeros((256, 3), np.uint8)
-        palette[:16] = np.frombuffer(data, np.uint8, 48, 16).reshape(16, 3)
+        palette[:16] = np.frombuffer(data, np.uint8, 48,
+                                     start + 16).reshape(16, 3)
     elif version == 5 and bits == 8 and planes == 1:
         mode = "L"
         tail = data[-769:]
@@ -84,7 +99,7 @@ def decode_pcx(data: bytes) -> ModeImage:
     if provided != stride:
         stride += stride % 2
     nbytes = planes * stride
-    rows = _rows(data, 128, h, nbytes)
+    rows = _rows(data, start + 128, h, nbytes)
     if mode == "1":
         px = np.unpackbits(rows, axis=1)[:, :w] * 255
     elif bits == 1:
@@ -104,3 +119,4 @@ def decode_pcx(data: bytes) -> ModeImage:
         px = rows[:, :w]
     px = np.ascontiguousarray(px.astype(np.uint8))
     return ModeImage(mode, px, palette)
+
