@@ -286,9 +286,22 @@ Phases (each prints its own lines; any failure exits non-zero):
                 PackBits PSD, a BC7 and a DXT1 DDS, a BLP2 palette, an
                 IM, an RLE SUN, an FLI and a float FITS, under the
                 dataset's extensions), as phase 15 (b), K2 = 1600; then
-                --image on a 256x256 PackBits PSD, K2 = 1600.  (c) JPEG
-                2000, MPEG, WMF, BUFR, GRIB and HDF5 headers are named as
-                PIL names them and raise naming the type.
+                --image on a 256x256 PackBits PSD, K2 = 1600.  (c) MPEG,
+                WMF, BUFR, GRIB and HDF5 headers are named as PIL names
+                them and raise naming the type.
+ 17. j2k      : JPEG 2000 and ZSTD TIFF (jpeg2000.py, jp2.py,
+                j2k_codestream.py, j2k_t2.py, j2k_t1.py, j2k_dwt.py,
+                zstd.py; host code).  (a) every fixture under
+                tests/data/{jp2,zstd,restore18} against its committed PIL
+                decode (convert("RGBA")) and, for "I;16", its committed
+                pixels, bit for bit; host seconds by detected type.  (b)
+                cli/ddnm_restore over tests/data/restore18 (JP2 files and
+                raw codestreams, 5/3 and 9/7, tiled, layered, RPCL with
+                precincts, SOP / EPH, an ICNS of a JPEG 2000 icon and a
+                ZSTD TIFF, under the dataset's extensions), as phase 15
+                (b), K2 = 1600; then --image on a 256x256 JP2 (9/7, 5
+                levels, 3 layers), the fed image equal to its PIL decode,
+                K2 = 1600.  (d) an AVIF header still raises naming AVIF.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -3594,8 +3607,6 @@ REST_TYPES = {"DDS", "FTEX", "BLP", "PSD", "ICNS", "IM", "IMT", "SPIDER",
               "PIXAR", "XVThumb", "IPTC"}
 # files PIL identifies and the port refuses: (bytes, type, exception)
 REFUSED = (
-    (b"\xff\x4f\xff\x51\x00\x2f" + bytes(60), "JPEG2000",
-     NotImplementedError),
     (b"\x00\x00\x01\xb3\x02\x00\x18" + bytes(20), "MPEG", OSError),
     (b"\xd7\xcd\xc6\x9a\x00\x00" + bytes(4) + b"\x90\x01\x2c\x01"
      + b"\xa0\x05" + bytes(6) + b"\x01\x00\t\x00" + bytes(18), "WMF",
@@ -3718,6 +3729,131 @@ def rest_readers_phase(dev, work: str, steps: int = 100) -> None:
            for kind, (named, raised) in results.items()):
         fail(f"refused formats: {results}")
 
+
+
+# ---- phase 17: JPEG 2000 and ZSTD TIFF -----------------------------------
+
+# the fixture folders of this phase under tests/data; each file's PIL
+# decode (convert("RGBA")) is `<stem>_pil.png` beside it, and its "I;16"
+# pixels `<stem>_pil.npy`
+J2K_DIRS = ("jp2", "zstd", "restore18")
+J2K_TYPES = {"JPEG2000", "ICNS", "TIFF"}
+# an AVIF header (ftyp avif, a meta box): still identified and refused
+AVIF_HEADER = (b"\x00\x00\x00\x14ftypavif\x00\x00\x00\x00avif"
+               + b"\x00\x00\x00\x0cmeta\x00\x00\x00\x00")
+
+
+def jpeg2000_phase(dev, work: str, steps: int = 100) -> None:
+    """Phase 17: every JPEG 2000 and ZSTD TIFF fixture against its
+    committed PIL decode (and "I;16" pixels); the restore CLI over
+    tests/data/restore18 (files only these readers decode, under the
+    dataset's extensions) and --image on a 256x256 9/7 JP2; AVIF still
+    refused."""
+    import numpy as np
+
+    from pointdreamer_tpu_torch import io as pio
+    from pointdreamer_tpu_torch.models.diffusion import datasets
+
+    data = os.path.join(REPO, "tests", "data")
+    # (a) the fixtures, bit for bit, host seconds by type
+    t0 = time.perf_counter()
+    secs, counts = {}, {}
+    bad = []
+    big = 0.0
+    for sub in J2K_DIRS:
+        for f in sorted(os.listdir(os.path.join(data, sub))):
+            if f.endswith(("_pil.png", "_pil.npy")):
+                continue
+            path = os.path.join(data, sub, f)
+            stem = os.path.join(data, sub, os.path.splitext(f)[0])
+            with open(path, "rb") as fh:
+                raw = fh.read()
+            kind = pio.image_type(raw)
+            t1 = time.perf_counter()
+            img = pio.decode_image(raw, path)
+            got = pio.to_rgba(img)
+            dt = time.perf_counter() - t1
+            secs[kind] = secs.get(kind, 0.0) + dt
+            counts[kind] = counts.get(kind, 0) + 1
+            if f == "restore_256.jp2":
+                big = dt
+            want = pio.load_png(stem + "_pil.png")
+            ok = got.shape == want.shape and bool((got == want).all())
+            if os.path.exists(stem + "_pil.npy"):
+                px = np.load(stem + "_pil.npy")
+                ok &= img.pixels.shape == px.shape and np.array_equal(
+                    img.pixels, px)
+            if not ok:
+                bad.append(f"{sub}/{f}")
+    print("[j2k] " + ", ".join(
+        f"{counts[k]} {k} in {secs[k]:.3f} s" for k in sorted(secs))
+        + f" (host; restore_256.jp2 alone {big:.3f} s; "
+        f"{time.perf_counter() - t0:.3f} s in all), each bit-equal to its "
+        "committed PIL decode")
+    if bad or set(counts) != J2K_TYPES:
+        fail(f"j2k fixtures: {bad} differ; types {sorted(counts)}")
+
+    # (b) the restore CLI: the folder of 8, then --image on a JP2
+    src = os.path.join(work, "phase17_in")
+    os.makedirs(src, exist_ok=True)
+    names = sorted(f for f in os.listdir(os.path.join(data, "restore18"))
+                   if not f.endswith(("_pil.png", "_pil.npy")))
+    for f in names:
+        shutil.copy(os.path.join(data, "restore18", f), os.path.join(src, f))
+    out = os.path.join(work, "phase17_out")
+    fed, runs, wall, launches = _restore_run(
+        ["--image_dir", src, "--dataset", "IMAGENET", "--deg", "sr4",
+         "--batch", "8", "--steps", str(steps), "--out", out])
+    same = bool(fed)
+    for fnames, imgs in fed:
+        want = np.stack([datasets.center_crop_arr(pio.load_png(os.path.join(
+            data, "restore18", os.path.splitext(os.path.basename(n))[0]
+            + "_pil.png"))[..., :3], 256).astype(np.float32) / 255.0
+            for n in fnames])
+        same &= imgs.shape == want.shape and bool((imgs == want).all())
+    kinds = sorted(pio.image_type(open(os.path.join(src, f), "rb").read())
+                   for f in names)
+    print(f"[j2k] ddnm_restore --image_dir over {len(names)} files "
+          f"({', '.join(kinds)} under .png, .jpg, .jpeg, .bmp, .webp and "
+          f".ppm names), IMAGENET, sr4, batch 8, {steps} steps: "
+          f"{wall:.3f} s; fed batch equal to the PIL-decoded batch: {same}")
+    if not same or len(names) != 8:
+        fail("restore: the dataset's batch differs from the batch of the "
+             "committed PIL decodes")
+    _check_restore("folder", runs, launches, len(names), steps,
+                   sorted(os.listdir(out)) if os.path.isdir(out) else [],
+                   sorted(f"{os.path.splitext(n)[0]}{s}.png" for n in names
+                          for s in ("", "_degraded")), tag="j2k")
+    path = os.path.join(data, "jp2", "restore_256.jp2")
+    out_png = os.path.join(work, "phase17_jp2", "out.png")
+    os.makedirs(os.path.dirname(out_png), exist_ok=True)
+    fed, runs, wall, launches = _restore_run(
+        ["--image", path, "--dataset", "IMAGENET", "--deg", "sr4",
+         "--steps", str(steps), "--out", out_png])
+    want = pio.load_png(os.path.join(data, "jp2", "restore_256_pil.png"))
+    want = want[..., :3].astype(np.float32)[None] / 255.0
+    same = len(fed) == 1 and fed[0][1].shape == want.shape and bool(
+        (fed[0][1] == want).all())
+    print(f"[j2k] ddnm_restore --image restore_256.jp2 (256x256, 9/7, 5 "
+          f"levels, 3 layers), sr4, {steps} steps: {wall:.3f} s; fed image "
+          f"equal to its PIL decode: {same}")
+    if not same:
+        fail("restore --image restore_256.jp2: the fed image differs from "
+             "its committed PIL decode")
+    _check_restore("restore_256.jp2", runs, launches, 1, steps,
+                   sorted(os.listdir(os.path.dirname(out_png))),
+                   ["out.png", "out_degraded.png"], tag="j2k")
+
+    # (d) AVIF: identified, and refused naming itself
+    named = pio.image_type(AVIF_HEADER)
+    try:
+        pio.decode_image(AVIF_HEADER, "x.png")
+        raised = ""
+    except NotImplementedError as e:
+        raised = type(e).__name__ if "AVIF" in str(e) else ""
+    print(f"[j2k] AVIF header: type {named!r}, raises {raised!r}")
+    if named != "AVIF" or not raised:
+        fail(f"AVIF: type {named!r}, raised {raised!r}")
 
 def main() -> int:
     import numpy as np
@@ -4167,6 +4303,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     rest_readers_phase(dev, work)
     print(f"[rest] phase 16 {time.perf_counter() - t16:.2f} s")
+
+    # ---- 17. JPEG 2000 and ZSTD TIFF ------------------------------------
+    t17 = time.perf_counter()
+    torch.cuda.empty_cache()
+    jpeg2000_phase(dev, work)
+    print(f"[j2k] phase 17 {time.perf_counter() - t17:.2f} s")
 
     print(card)
     print(json.dumps({"kernels": table}))

@@ -4,8 +4,9 @@ PIL opens the largest entry size the file holds (the greatest (width,
 height, scale) among the types it knows) and reads every entry of that
 size it has a reader for:
 - PNG entries (ic07-ic14, icp4-icp6): the PNG, in its own mode;
-- JPEG 2000 entries: NotImplementedError naming JPEG 2000, which the port
-  does not decode yet;
+- JPEG 2000 entries (a codestream or a JP2 file, of the entry's length):
+  decoded by `jpeg2000.py`, then converted to "RGBA" (PIL's
+  `read_png_or_jpeg2000`);
 - 24-bit entries is32 / il32 / ih32 / it32 (it32 after four zero bytes):
   raw when the entry holds exactly 3 bytes a pixel, else the three
   channels one after the other, each run-length coded (a byte n < 128: n
@@ -18,7 +19,8 @@ import struct
 
 import numpy as np
 
-from .imagemode import ModeImage, NotThisFormat, of_array
+from .imagemode import ModeImage, NotThisFormat, of_array, to_rgba
+from .jpeg2000 import decode_jpeg2000
 
 _PNG = "png"
 # (width, height, scale) -> the entry types of that size, in PIL's order
@@ -117,9 +119,9 @@ def decode_icns(data: bytes) -> ModeImage:
                 return of_array(decode_png(data[start:]))
             if sig.startswith((b"\xff\x4f\xff\x51", b"\x0d\x0a\x87\x0a")) \
                     or sig == b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a":
-                raise NotImplementedError(
-                    "ICNS: a JPEG 2000 icon entry; the port does not decode "
-                    "JPEG 2000 yet")
+                img = decode_jpeg2000(data[start:start + length])
+                return img if img.mode == "RGBA" else ModeImage(
+                    "RGBA", to_rgba(img))
             raise ValueError("ICNS: unsupported icon subimage format")
         if kind == "32t":
             if data[start:start + 4] != b"\0\0\0\0":

@@ -16,8 +16,9 @@ and FTEX with BC1-BC7 (`dds.py`, `bcn.py`), PSD (`psd.py`), ICNS
 (`icns.py`), BLP (`blp.py`), IM and IMT (`im.py`), SPIDER (`spider.py`),
 FITS (`fits.py`), XPM (`xpm.py`), FLI (`fli.py`), SUN (`sun.py`), PCD
 (`pcd.py`), IPTC (`iptc.py`), GBR, McIdas, PIXAR and XV thumbnails
-(`smallimg.py`).  JPEG 2000, AVIF, EPS, MPEG, WMF, BUFR, GRIB and HDF5
-are identified and refused (`refused.py`).  `load_rgb` / `load_rgba` are
+(`smallimg.py`), JPEG 2000 (JP2 files and raw codestreams:
+`jpeg2000.py`).  AVIF, EPS, MPEG, WMF, BUFR, GRIB and HDF5 are
+identified and refused (`refused.py`).  `load_rgb` / `load_rgba` are
 PIL's convert("RGB") / convert("RGBA") from that mode.  Image writers take
 numpy arrays or torch tensors; a device tensor is quantized to uint8 on
 the device before the one host transfer.
@@ -33,12 +34,14 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from . import (blp, dcx, dds, fits, fli, icns, ico, im, iptc, msp, pcd, pcx,
-               psd, qoi, refused, sgi, smallimg, spider, sun, tga, xbm, xpm)
+from . import (blp, dcx, dds, fits, fli, icns, ico, im, iptc, jp2, msp, pcd,
+               pcx, psd, qoi, refused, sgi, smallimg, spider, sun, tga, xbm,
+               xpm)
 from .gif import decode_gif
 from .imagemode import (ModeImage, NotThisFormat, natural, of_array, to_rgb,
                         to_rgba)
 from .jpeg import decode_jpeg, decode_jpeg_image  # noqa: F401 (re-export)
+from .jpeg2000 import decode_jpeg2000
 from .tiff import decode_tiff
 from .webp import decode_webp
 
@@ -882,8 +885,7 @@ _PLUGINS = (
      smallimg.decode_gbr),
     ("GRIB", refused.grib_accepts, refused.stub_refused("GRIB")),
     ("HDF5", refused.hdf5_accepts, refused.stub_refused("HDF5")),
-    ("JPEG2000", refused.jpeg2000_accepts,
-     refused.not_decoded("JPEG2000")),
+    ("JPEG2000", _when(jp2.accepts, jp2.probe), decode_jpeg2000),
     ("ICNS", _when(icns.accepts, icns.probe), icns.decode_icns),
     ("ICO", ico.ico_accepts, ico.decode_ico),
     ("IM", _opens(im.probe), im.decode_im),

@@ -1,10 +1,9 @@
 """The formats PIL 12.1 identifies and the port refuses, each told apart
 as PIL's plugin tells it, so that no later plugin misreads the file.
 
-- JPEG 2000 (a codestream or a JP2 signature box) and AVIF (an ftyp box
-  of a coding brand, or an image-container brand whose compatible brands
-  name avif / avis, and a meta box): NotImplementedError naming each; the
-  port has no decoder for them yet;
+- AVIF (an ftyp box of a coding brand, or an image-container brand whose
+  compatible brands name avif / avis, and a meta box): NotImplementedError
+  naming it; the port has no AV1 decoder yet;
 - EPS: PIL parses the DSC header (a "%!PS" start or the binary EPS
   preview header, a "%!PS-Adobe" comment and a bounding box) and renders
   the page through Ghostscript, which the port does not run: OSError, as
@@ -23,11 +22,6 @@ from .imagemode import NotThisFormat
 
 # ---------------------------------------------------------------------------
 # accept tests, as each plugin's _accept (on the first 16 bytes) and _open
-
-
-def jpeg2000_accepts(data: bytes) -> bool:
-    return data[:4] == b"\xff\x4f\xff\x51" or \
-        data[:12] == b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"
 
 
 def avif_probe(data: bytes) -> None:

@@ -8,12 +8,13 @@ holds it (its own raw reader, or libtiff 4.7 for compressed data).
   the layouts PIL reads right);
 - compression none, PackBits, LZW (MSB-first codes with libtiff's early
   code width change, and the old-style LSB-first codes), Deflate (8 and
-  32946), LZMA (34925, Python's `lzma`), JPEG (7: each strip or tile a
-  JPEG stream after the JPEGTables, decoded by `jpeg.py` with no colour
-  conversion but YCbCr's, as libtiff asks libjpeg for it) and CCITT RLE,
-  Group 3 and Group 4 (2, 3, 4: `fax.py`);
+  32946), LZMA (34925, Python's `lzma`), ZSTD (50000, `zstd.py`: the
+  first frame of each strip or tile, as libtiff reads it), JPEG (7: each
+  strip or tile a JPEG stream after the JPEGTables, decoded by `jpeg.py`
+  with no colour conversion but YCbCr's, as libtiff asks libjpeg for it)
+  and CCITT RLE, Group 3 and Group 4 (2, 3, 4: `fax.py`);
 - horizontal differencing (Predictor 2) at 8 and 16 bits, undone for LZW,
-  Deflate and LZMA data only, as libtiff undoes it (PIL reads
+  Deflate, LZMA and ZSTD data only, as libtiff undoes it (PIL reads
   uncompressed data with its own raw reader, which ignores the tag, and
   libtiff's PackBits codec ignores it too);
 - the modes of PIL's OPEN_INFO table: MinIsWhite and MinIsBlack grey
@@ -39,9 +40,8 @@ holds it (its own raw reader, or libtiff 4.7 for compressed data).
 
 Uncompressed YCbCr strips are read as PIL's raw reader misreads them (as
 RGBX).  Anything else raises naming the tag and its value: old-style
-JPEG, ZSTD (Python has no decoder), WebP and the other compressions, the
-floating-point predictor, the other photometric interpretations, and the
-modes PIL itself refuses.
+JPEG, WebP and the other compressions, the floating-point predictor, the
+other photometric interpretations, and the modes PIL itself refuses.
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from . import fax
+from . import fax, zstd
 from .imagemode import ModeImage
 from .jpeg import jpeg_planes, ycc_to_rgb
 
@@ -66,7 +66,7 @@ COMPRESSIONS = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3 fax",
                 32946: "Deflate (PKZIP)", 34712: "JPEG 2000",
                 34887: "LERC", 34925: "LZMA", 50000: "ZSTD",
                 50001: "WebP"}
-_SUPPORTED = {1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925}
+_SUPPORTED = {1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925, 50000}
 PHOTOMETRICS = {0: "MinIsWhite", 1: "MinIsBlack", 2: "RGB", 3: "Palette",
                 4: "Mask", 5: "CMYK (Separated)", 6: "YCbCr", 8: "CIELab",
                 9: "ICCLab", 10: "ITULab", 32844: "LogL", 32845: "LogLuv"}
@@ -282,6 +282,8 @@ def _decompress(raw: bytes, comp: int) -> bytes:
         return lzw_decode(raw)
     if comp == 34925:
         return lzma.LZMADecompressor().decompress(raw)
+    if comp == 50000:
+        return zstd.decompress(raw)
     return zlib.decompressobj().decompress(raw)
 
 
@@ -452,7 +454,7 @@ def decode_tiff(data: bytes) -> ModeImage:
         raise NotImplementedError(
             f"TIFF Compression {comp} ({COMPRESSIONS.get(comp, 'unknown')})"
             " is not supported: none, CCITT RLE, Group 3 and 4, LZW, JPEG, "
-            "Deflate, PackBits and LZMA only")
+            "Deflate, PackBits, LZMA and ZSTD only")
     predictor = one(317, 1)
     if predictor not in (1, 2):
         raise NotImplementedError(
@@ -491,9 +493,9 @@ def decode_tiff(data: bytes) -> ModeImage:
             f"TIFF PlanarConfiguration 2 with BitsPerSample {bps} and "
             f"ExtraSamples {extra}: planar 8-bit RGB and RGBA only (PIL "
             "12.1 refuses or misreads the other planar layouts)")
-    if comp not in (5, 8, 32946, 34925):
-        # libtiff undoes the predictor for LZW, Deflate and LZMA only, and
-        # PIL's own reader of uncompressed data ignores it
+    if comp not in (5, 8, 32946, 34925, 50000):
+        # libtiff undoes the predictor for LZW, Deflate, LZMA and ZSTD only,
+        # and PIL's own reader of uncompressed data ignores it
         predictor = 1
     if predictor == 2 and bits not in (8, 16):
         raise NotImplementedError(f"TIFF Predictor 2 at {bits} bits")

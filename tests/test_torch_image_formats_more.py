@@ -685,10 +685,10 @@ def test_pnm_refused_where_pil_refuses(case):
     ("EPS", {}), ("AVIF", {"quality": 60})])
 def test_formats_still_refused_raise_naming_the_type(fmt, opts, tmp_path):
     # the formats this file's slice left: PIL writes each here.  DDS, IM,
-    # ICNS and BLP are now read as PIL reads them; JPEG 2000 and AVIF are
-    # identified as PIL identifies them and raise NotImplementedError
-    # naming the type (the port has no decoder for them yet); EPS raises
-    # where PIL raises (it renders through Ghostscript, absent here)
+    # ICNS, BLP and JPEG 2000 are now read as PIL reads them; AVIF is
+    # identified as PIL identifies it and raises NotImplementedError
+    # naming the type (the port has no AV1 decoder yet); EPS raises where
+    # PIL raises (it renders through Ghostscript, and raises without it)
     img = Image.fromarray(_image(32, 32, 99))
     if fmt == "BLP":                        # PIL writes BLP from "P" only
         img = img.quantize(16)
@@ -697,7 +697,7 @@ def test_formats_still_refused_raise_naming_the_type(fmt, opts, tmp_path):
     except Exception as e:                          # pragma: no cover
         pytest.fail(f"PIL could not write {fmt}: {e}")
     assert tio.image_type(data) == pil_format(data)
-    if fmt in ("JPEG2000", "AVIF"):
+    if fmt == "AVIF":
         with pytest.raises(NotImplementedError, match=fmt):
             tio.decode_image(data, "a.bin")
     elif fmt == "EPS":
@@ -710,13 +710,28 @@ def test_formats_still_refused_raise_naming_the_type(fmt, opts, tmp_path):
 
 
 def test_tiff_zstd_and_webp_raise_naming_the_compression():
+    # ZSTD (50000) is read (zstd.py): a strip of raw bytes is no zstd
+    # frame, so it raises, naming zstd, where libtiff fails too; WebP
+    # (50001) raises naming the compression
     img = _image(16, 8, 7).astype(np.int64)
-    for comp, name in ((50000, "ZSTD"), (50001, "WebP")):
-        data = tiff_file(img, 2, 8, encode=lambda b: b,
-                         extra_tags={259: (3, [comp])})
-        with pytest.raises(NotImplementedError,
-                           match=f"Compression {comp} \\({name}\\)"):
-            ttiff.decode_tiff(data)
+    data = tiff_file(img, 2, 8, encode=lambda b: b,
+                     extra_tags={259: (3, [50000])})
+    with pytest.raises(Exception):
+        Image.open(io.BytesIO(data)).load()
+    with pytest.raises(ValueError, match="zstd"):
+        ttiff.decode_tiff(data)
+    from test_torch_zstd import zstd_frame
+
+    data = tiff_file(img, 2, 8, encode=zstd_frame,
+                     extra_tags={259: (3, [50000])})
+    np.testing.assert_array_equal(ttiff.decode_tiff(data).pixels, img)
+    np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(data))),
+                                  img)
+    data = tiff_file(img, 2, 8, encode=lambda b: b,
+                     extra_tags={259: (3, [50001])})
+    with pytest.raises(NotImplementedError,
+                       match="Compression 50001 \\(WebP\\)"):
+        ttiff.decode_tiff(data)
 
 
 def test_tga_without_a_signature_is_tried_last():

@@ -1103,13 +1103,16 @@ def _refusals():
 
 @pytest.mark.parametrize("name", list(_refusals()))
 def test_identified_formats_refused_naming_the_type(name):
-    # PIL identifies each; it decodes none here (AVIF and JPEG 2000 it
-    # does: the port has no decoder for them yet), and no later plugin of
-    # the port takes the file
+    # PIL identifies each, and no later plugin of the port takes the file.
+    # JPEG 2000 the port reads as PIL reads it; PIL decodes AVIF and
+    # the port raises naming it (no AV1 decoder yet); PIL decodes none of
+    # the rest
     data = _refusals()[name]()
     fmt = Image.open(io.BytesIO(data)).format
     assert tio.image_type(data) == fmt
-    if fmt in ("JPEG2000", "AVIF"):
+    if fmt == "JPEG2000":
+        assert_reads_as_pil(data, name)
+    elif fmt == "AVIF":
         _pil_open(data)
         with pytest.raises(NotImplementedError, match=fmt):
             tio.decode_image(data, "a.png")
@@ -1121,12 +1124,14 @@ def test_identified_formats_refused_naming_the_type(name):
 
 
 def test_icns_jpeg2000_entry_raises_naming_it():
+    # a JPEG 2000 icon entry reads as PIL reads it (jpeg2000.py, then
+    # "RGBA")
     j2k = _pil_bytes(Image.fromarray(_image(64, 64, 98)), "JPEG2000")
     data = icns_file([(b"icp6", j2k)])
     assert _pil_open(data).size == (64, 64)
     assert tio.image_type(data) == "ICNS"
-    with pytest.raises(NotImplementedError, match="JPEG 2000"):
-        tio.decode_image(data)
+    got, im = assert_reads_as_pil(data, "icns_jpeg2000")
+    assert got.mode == im.mode == "RGBA"
 
 
 def test_restore_folder_batches_match_jax(tmp_path):

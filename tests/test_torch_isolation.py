@@ -71,7 +71,9 @@ def test_port_imports_nothing_forbidden():
                 "msp.py", "xbm.py", "bcn.py", "dds.py", "blp.py", "psd.py",
                 "icns.py", "im.py", "spider.py", "fits.py", "xpm.py",
                 "fli.py", "sun.py", "dcx.py", "pcd.py", "iptc.py",
-                "smallimg.py", "refused.py"):
+                "smallimg.py", "refused.py", "zstd.py", "jp2.py",
+                "j2k_codestream.py", "j2k_t2.py", "j2k_t1.py", "j2k_dwt.py",
+                "jpeg2000.py"):
         assert os.path.join("pointdreamer_tpu_torch", mod) in scanned
     for path in _port_sources():
         with open(path) as fh:
