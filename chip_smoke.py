@@ -301,7 +301,19 @@ Phases (each prints its own lines; any failure exits non-zero):
                 ZSTD TIFF, under the dataset's extensions), as phase 15
                 (b), K2 = 1600; then --image on a 256x256 JP2 (9/7, 5
                 levels, 3 layers), the fed image equal to its PIL decode,
-                K2 = 1600.  (d) an AVIF header still raises naming AVIF.
+                K2 = 1600.  (d) an AVIF fixture decodes, bit-equal to its
+                PIL decode.
+ 18. avif     : AVIF (avif.py, av1_*.py, avif_rgb.py; host code).  (a)
+                every fixture under tests/data/{avif,restore19} against
+                its committed PIL decode ("RGB" / "RGBA"), bit for bit;
+                host seconds by bit depth and chroma format.  (b)
+                cli/ddnm_restore over tests/data/restore19 (8 AVIFs under
+                the dataset's extensions: 4:2:0, 4:4:4, RGBA, 10-bit,
+                film grain, lossless, 4:2:2, screen content), the fed
+                batch equal to the PIL-decoded batch, K2 = 1600.  (c)
+                --image on a 256x256 AVIF, K2 = 1600.  (d) the host
+                decode seconds of a 512x384 q60 AVIF (median of 3) and
+                the SHA-256 of its pixels against the committed digest.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -3738,17 +3750,13 @@ def rest_readers_phase(dev, work: str, steps: int = 100) -> None:
 # pixels `<stem>_pil.npy`
 J2K_DIRS = ("jp2", "zstd", "restore18")
 J2K_TYPES = {"JPEG2000", "ICNS", "TIFF"}
-# an AVIF header (ftyp avif, a meta box): still identified and refused
-AVIF_HEADER = (b"\x00\x00\x00\x14ftypavif\x00\x00\x00\x00avif"
-               + b"\x00\x00\x00\x0cmeta\x00\x00\x00\x00")
-
 
 def jpeg2000_phase(dev, work: str, steps: int = 100) -> None:
     """Phase 17: every JPEG 2000 and ZSTD TIFF fixture against its
     committed PIL decode (and "I;16" pixels); the restore CLI over
     tests/data/restore18 (files only these readers decode, under the
-    dataset's extensions) and --image on a 256x256 9/7 JP2; AVIF still
-    refused."""
+    dataset's extensions) and --image on a 256x256 9/7 JP2; an AVIF read
+    as PIL reads it."""
     import numpy as np
 
     from pointdreamer_tpu_torch import io as pio
@@ -3844,16 +3852,150 @@ def jpeg2000_phase(dev, work: str, steps: int = 100) -> None:
                    sorted(os.listdir(os.path.dirname(out_png))),
                    ["out.png", "out_degraded.png"], tag="j2k")
 
-    # (d) AVIF: identified, and refused naming itself
-    named = pio.image_type(AVIF_HEADER)
-    try:
-        pio.decode_image(AVIF_HEADER, "x.png")
-        raised = ""
-    except NotImplementedError as e:
-        raised = type(e).__name__ if "AVIF" in str(e) else ""
-    print(f"[j2k] AVIF header: type {named!r}, raises {raised!r}")
-    if named != "AVIF" or not raised:
-        fail(f"AVIF: type {named!r}, raised {raised!r}")
+    # (d) AVIF: identified and read as PIL reads it (phase 18 has the rest)
+    path = os.path.join(data, "avif", "q60.avif")
+    with open(path, "rb") as fh:
+        raw = fh.read()
+    named = pio.image_type(raw)
+    got = pio.decode_image(raw, path).pixels
+    want = pio.load_png(os.path.join(data, "avif", "q60_pil.png"))
+    same = got.shape == want.shape and bool((got == want).all())
+    print(f"[j2k] AVIF q60.avif: type {named!r}, equal to its PIL decode: "
+          f"{same}")
+    if named != "AVIF" or not same:
+        fail(f"AVIF: type {named!r}, equal to PIL: {same}")
+
+
+# the AVIF fixture folders under tests/data; each file's PIL decode (its
+# mode, "RGB" or "RGBA") is `<stem>_pil.png` beside it
+AVIF_DIRS = ("avif", "restore19")
+AVIF_TIMING = ("timing", "avif_q60_512x384")
+
+
+def avif_phase(dev, work: str, steps: int = 100) -> None:
+    """Phase 18: every AVIF fixture against its committed PIL decode; the
+    restore CLI over tests/data/restore19 (8 AVIFs under the dataset's
+    extensions) and --image on a 256x256 AVIF; the 512x384 timing
+    fixture."""
+    import hashlib
+
+    import numpy as np
+
+    from pointdreamer_tpu_torch import avif
+    from pointdreamer_tpu_torch import io as pio
+    from pointdreamer_tpu_torch.av1_block import Stats
+    from pointdreamer_tpu_torch.models.diffusion import datasets
+
+    data = os.path.join(REPO, "tests", "data")
+    # (a) the fixtures, bit for bit, host seconds by bit depth and format
+    t0 = time.perf_counter()
+    secs, counts = {}, {}
+    bad = []
+    for sub in AVIF_DIRS:
+        for f in sorted(os.listdir(os.path.join(data, sub))):
+            if f.endswith("_pil.png"):
+                continue
+            path = os.path.join(data, sub, f)
+            with open(path, "rb") as fh:
+                raw = fh.read()
+            st = Stats()
+            t1 = time.perf_counter()
+            kind = pio.image_type(raw)
+            got = avif.decode_avif(raw, st) if kind == "AVIF" else None
+            dt = time.perf_counter() - t1
+            # the colour image's depth and format come first in `st`
+            depth = next((k[9:] for k in st if k.startswith("bitdepth")),
+                         "?")
+            fmt = next((k.replace("subsampling_", "ss")
+                        for k in st if k.startswith(("subsampling", "mono"))),
+                       "?")
+            alpha = "+alpha" if got is not None and got.shape[-1] == 4 \
+                else ""
+            key = f"{depth}-bit {fmt}{alpha}"
+            secs[key] = secs.get(key, 0.0) + dt
+            counts[key] = counts.get(key, 0) + 1
+            want = pio.load_png(os.path.join(data, sub, os.path.splitext(
+                f)[0] + "_pil.png"))
+            if got is None or got.shape != want.shape or not bool(
+                    (got == want).all()):
+                bad.append(f"{sub}/{f}")
+    print("[avif] " + ", ".join(
+        f"{counts[k]} {k} in {secs[k]:.3f} s" for k in sorted(secs))
+        + f" (host; {time.perf_counter() - t0:.3f} s in all), each "
+        "bit-equal to its committed PIL decode")
+    if bad or sum(counts.values()) < 50:
+        fail(f"avif fixtures: {bad} differ; {sum(counts.values())} read")
+
+    # (b) the restore CLI: the folder of 8, then --image on an AVIF
+    src = os.path.join(work, "phase18_in")
+    os.makedirs(src, exist_ok=True)
+    names = sorted(f for f in os.listdir(os.path.join(data, "restore19"))
+                   if not f.endswith("_pil.png"))
+    for f in names:
+        shutil.copy(os.path.join(data, "restore19", f), os.path.join(src, f))
+    out = os.path.join(work, "phase18_out")
+    fed, runs, wall, launches = _restore_run(
+        ["--image_dir", src, "--dataset", "IMAGENET", "--deg", "sr4",
+         "--batch", "8", "--steps", str(steps), "--out", out])
+    same = bool(fed)
+    for fnames, imgs in fed:
+        want = np.stack([datasets.center_crop_arr(pio.load_png(os.path.join(
+            data, "restore19", os.path.splitext(os.path.basename(n))[0]
+            + "_pil.png"))[..., :3], 256).astype(np.float32) / 255.0
+            for n in fnames])
+        same &= imgs.shape == want.shape and bool((imgs == want).all())
+    kinds = sorted({pio.image_type(open(os.path.join(src, f), "rb").read())
+                    for f in names})
+    print(f"[avif] ddnm_restore --image_dir over {len(names)} files "
+          f"({', '.join(kinds)} under .png, .jpg, .jpeg, .bmp, .webp and "
+          f".ppm names), IMAGENET, sr4, batch 8, {steps} steps: "
+          f"{wall:.3f} s; fed batch equal to the PIL-decoded batch: {same}")
+    if not same or len(names) != 8 or kinds != ["AVIF"]:
+        fail("restore: the dataset's batch differs from the batch of the "
+             "committed PIL decodes")
+    _check_restore("folder", runs, launches, len(names), steps,
+                   sorted(os.listdir(out)) if os.path.isdir(out) else [],
+                   sorted(f"{os.path.splitext(n)[0]}{s}.png" for n in names
+                          for s in ("", "_degraded")), tag="avif")
+    path = os.path.join(data, "avif", "restore_256.avif")
+    out_png = os.path.join(work, "phase18_avif", "out.png")
+    os.makedirs(os.path.dirname(out_png), exist_ok=True)
+    fed, runs, wall, launches = _restore_run(
+        ["--image", path, "--dataset", "IMAGENET", "--deg", "sr4",
+         "--steps", str(steps), "--out", out_png])
+    want = pio.load_png(os.path.join(data, "avif", "restore_256_pil.png"))
+    want = want[..., :3].astype(np.float32)[None] / 255.0
+    same = len(fed) == 1 and fed[0][1].shape == want.shape and bool(
+        (fed[0][1] == want).all())
+    print(f"[avif] ddnm_restore --image restore_256.avif (256x256, q60), "
+          f"sr4, {steps} steps: {wall:.3f} s; fed image equal to its PIL "
+          f"decode: {same}")
+    if not same:
+        fail("restore --image restore_256.avif: the fed image differs from "
+             "its committed PIL decode")
+    _check_restore("restore_256.avif", runs, launches, 1, steps,
+                   sorted(os.listdir(os.path.dirname(out_png))),
+                   ["out.png", "out_degraded.png"], tag="avif")
+
+    # (d) the timing fixture: median of 3 host decodes, SHA-256
+    sub, stem = AVIF_TIMING
+    with open(os.path.join(data, sub, stem + ".avif"), "rb") as fh:
+        raw = fh.read()
+    with open(os.path.join(data, sub, stem + ".sha256")) as fh:
+        digest = fh.read().strip()
+    times = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        px = avif.decode_avif(raw)
+        times.append(time.perf_counter() - t1)
+    got = hashlib.sha256(px.tobytes()).hexdigest()
+    print(f"[avif] {stem}.avif ({px.shape[1]}x{px.shape[0]}, 4:2:0): "
+          f"host decode {sorted(times)[1]:.3f} s (median of 3: "
+          f"{', '.join(f'{t:.3f}' for t in times)}); SHA-256 of the pixels "
+          f"{got[:16]}... equal to the committed digest: {got == digest}")
+    if got != digest:
+        fail(f"{stem}: decoded pixels differ from the committed digest")
+
 
 def main() -> int:
     import numpy as np
@@ -4309,6 +4451,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     jpeg2000_phase(dev, work)
     print(f"[j2k] phase 17 {time.perf_counter() - t17:.2f} s")
+
+    # ---- 18. AVIF -------------------------------------------------------
+    t18 = time.perf_counter()
+    torch.cuda.empty_cache()
+    avif_phase(dev, work)
+    print(f"[avif] phase 18 {time.perf_counter() - t18:.2f} s")
 
     print(card)
     print(json.dumps({"kernels": table}))

@@ -17,8 +17,9 @@ and FTEX with BC1-BC7 (`dds.py`, `bcn.py`), PSD (`psd.py`), ICNS
 FITS (`fits.py`), XPM (`xpm.py`), FLI (`fli.py`), SUN (`sun.py`), PCD
 (`pcd.py`), IPTC (`iptc.py`), GBR, McIdas, PIXAR and XV thumbnails
 (`smallimg.py`), JPEG 2000 (JP2 files and raw codestreams:
-`jpeg2000.py`).  AVIF, EPS, MPEG, WMF, BUFR, GRIB and HDF5 are
-identified and refused (`refused.py`).  `load_rgb` / `load_rgba` are
+`jpeg2000.py`), AVIF (the first frame, through the AV1 decoder `av1_*.py`
+and libavif's YUV to RGB: `avif.py`, `avif_rgb.py`).  EPS, MPEG, WMF,
+BUFR, GRIB and HDF5 are identified and refused (`refused.py`).  `load_rgb` / `load_rgba` are
 PIL's convert("RGB") / convert("RGBA") from that mode.  Image writers take
 numpy arrays or torch tensors; a device tensor is quantized to uint8 on
 the device before the one host transfer.
@@ -34,9 +35,9 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from . import (blp, dcx, dds, fits, fli, icns, ico, im, iptc, jp2, msp, pcd,
-               pcx, psd, qoi, refused, sgi, smallimg, spider, sun, tga, xbm,
-               xpm)
+from . import (avif, blp, dcx, dds, fits, fli, icns, ico, im, iptc, jp2, msp,
+               pcd, pcx, psd, qoi, refused, sgi, smallimg, spider, sun, tga,
+               xbm, xpm)
 from .gif import decode_gif
 from .imagemode import (ModeImage, NotThisFormat, natural, of_array, to_rgb,
                         to_rgba)
@@ -869,7 +870,7 @@ _PLUGINS = (
     ("JPEG", lambda d: d[:3] == b"\xff\xd8\xff", decode_jpeg_image),
     ("PNM", _pnm_accepts, decode_pnm),
     ("PNG", lambda d: d[:8] == _PNG_SIG, _png_image),
-    ("AVIF", _opens(refused.avif_probe), refused.not_decoded("AVIF")),
+    ("AVIF", _opens(avif.probe), avif.decode_avif_image),
     ("BLP", _when(blp.accepts, blp.probe), blp.decode_blp),
     ("BUFR", refused.bufr_accepts, refused.stub_refused("BUFR")),
     ("CUR", ico.cur_accepts, ico.decode_cur),

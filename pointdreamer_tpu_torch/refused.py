@@ -1,9 +1,6 @@
 """The formats PIL 12.1 identifies and the port refuses, each told apart
 as PIL's plugin tells it, so that no later plugin misreads the file.
 
-- AVIF (an ftyp box of a coding brand, or an image-container brand whose
-  compatible brands name avif / avis, and a meta box): NotImplementedError
-  naming it; the port has no AV1 decoder yet;
 - EPS: PIL parses the DSC header (a "%!PS" start or the binary EPS
   preview header, a "%!PS-Adobe" comment and a bounding box) and renders
   the page through Ghostscript, which the port does not run: OSError, as
@@ -22,28 +19,6 @@ from .imagemode import NotThisFormat
 
 # ---------------------------------------------------------------------------
 # accept tests, as each plugin's _accept (on the first 16 bytes) and _open
-
-
-def avif_probe(data: bytes) -> None:
-    """AvifImagePlugin._accept and what libavif needs before it decodes:
-    the brands, then a meta box among the top-level boxes."""
-    if data[4:8] != b"ftyp" or data[8:12] not in (b"avif", b"avis",
-                                                  b"mif1", b"msf1"):
-        raise NotThisFormat("not an AVIF file")
-    size, = struct.unpack_from(">I", data)
-    brands = [data[i:i + 4] for i in range(16, min(size, len(data)), 4)]
-    if data[8:12] not in (b"avif", b"avis") and not {b"avif", b"avis"} & \
-            set(brands):
-        raise NotThisFormat("AVIF: no avif / avis brand")
-    pos = 0
-    while pos + 8 <= len(data):
-        n, kind = struct.unpack_from(">I4s", data, pos)
-        if kind == b"meta":
-            return
-        if n < 8:
-            break
-        pos += n
-    raise NotThisFormat("AVIF: no meta box")
 
 
 _SPLIT = re.compile(r"^%%([^:]*):[ \t]*(.*)[ \t]*$")
@@ -140,16 +115,6 @@ def hdf5_accepts(data: bytes) -> bool:
 
 # ---------------------------------------------------------------------------
 # what loading each gives
-
-
-def not_decoded(kind: str):
-    """The decoder of a format the port identifies and has no decoder
-    for yet (NotImplementedError naming it)."""
-    def decode(data: bytes):
-        raise NotImplementedError(
-            f"{kind}: identified as PIL 12.1 identifies it; the port has "
-            "no decoder for it yet")
-    return decode
 
 
 def eps_refused(data: bytes):

@@ -685,10 +685,9 @@ def test_pnm_refused_where_pil_refuses(case):
     ("EPS", {}), ("AVIF", {"quality": 60})])
 def test_formats_still_refused_raise_naming_the_type(fmt, opts, tmp_path):
     # the formats this file's slice left: PIL writes each here.  DDS, IM,
-    # ICNS, BLP and JPEG 2000 are now read as PIL reads them; AVIF is
-    # identified as PIL identifies it and raises NotImplementedError
-    # naming the type (the port has no AV1 decoder yet); EPS raises where
-    # PIL raises (it renders through Ghostscript, and raises without it)
+    # ICNS, BLP, JPEG 2000 and AVIF are now read as PIL reads them; EPS
+    # raises where PIL raises (it renders through Ghostscript, and raises
+    # without it)
     img = Image.fromarray(_image(32, 32, 99))
     if fmt == "BLP":                        # PIL writes BLP from "P" only
         img = img.quantize(16)
@@ -697,10 +696,7 @@ def test_formats_still_refused_raise_naming_the_type(fmt, opts, tmp_path):
     except Exception as e:                          # pragma: no cover
         pytest.fail(f"PIL could not write {fmt}: {e}")
     assert tio.image_type(data) == pil_format(data)
-    if fmt == "AVIF":
-        with pytest.raises(NotImplementedError, match=fmt):
-            tio.decode_image(data, "a.bin")
-    elif fmt == "EPS":
+    if fmt == "EPS":
         with pytest.raises(OSError):
             Image.open(io.BytesIO(data)).load()
         with pytest.raises(OSError, match="EPS"):

@@ -1104,18 +1104,13 @@ def _refusals():
 @pytest.mark.parametrize("name", list(_refusals()))
 def test_identified_formats_refused_naming_the_type(name):
     # PIL identifies each, and no later plugin of the port takes the file.
-    # JPEG 2000 the port reads as PIL reads it; PIL decodes AVIF and
-    # the port raises naming it (no AV1 decoder yet); PIL decodes none of
-    # the rest
+    # JPEG 2000 and AVIF the port reads as PIL reads them; PIL decodes
+    # none of the rest
     data = _refusals()[name]()
     fmt = Image.open(io.BytesIO(data)).format
     assert tio.image_type(data) == fmt
-    if fmt == "JPEG2000":
+    if fmt in ("JPEG2000", "AVIF"):
         assert_reads_as_pil(data, name)
-    elif fmt == "AVIF":
-        _pil_open(data)
-        with pytest.raises(NotImplementedError, match=fmt):
-            tio.decode_image(data, "a.png")
     else:
         with pytest.raises(OSError):
             _pil_open(data)
