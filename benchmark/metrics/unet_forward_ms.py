@@ -1,0 +1,11 @@
+"""unet_forward_ms: device milliseconds of one UNet forward in the
+profiled shape: the device events launched while a forward ran (of any
+client), over the forwards."""
+from pdbench import trace
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    s = trace.forward_device_s(run.trace)
+    return None if s is None else s * 1e3
