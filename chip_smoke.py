@@ -2779,7 +2779,7 @@ def nksr_phase(dev, ply_alone: str, work: str, spr_dist: float) -> None:
         meshes[what] = recon_one_shape_NKSR(xyz_n, rgb01, grid_res=grid,
                                             device=d, timer=timers[what])
         torch.cuda.synchronize()
-        timers[what].record("wall", time.perf_counter() - t0)
+        timers[what].times["wall"] = time.perf_counter() - t0
     v, f, c = meshes["card, defaults"]
     (vg, fg, cg), (vc, fc, cc) = (meshes[f"card, grid {compare_grid}"],
                                   meshes[f"CPU, grid {compare_grid}"])

@@ -32,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...log import span
 from ...parallel.mesh import all_gather_rows, rows
 from .unet import DYNAMIC, ActScales
 
@@ -112,27 +113,31 @@ def ddnm_inpaint_batch(model, masked_imgs: torch.Tensor,
                          device=dev) if collect_calib else None)
     x = noise[0] if noise is not None else draw()
     for s in range(len(pairs)):
-        if n_sites and act_scales is not None:
-            scales = ActScales("static", act_scales, s)
-        elif n_sites and collect_calib:
-            scales = ActScales("collect", calib, s, group)
-        else:
-            scales = ActScales(group=group) if group is not None else DYNAMIC
-        z = noise[1 + s] if noise is not None else draw()
-        at = torch.tensor(at_arr[s], device=dev)
-        at_next = torch.tensor(at_next_arr[s], device=dev)
-        # every view is at the same step: one timestep row, broadcast
-        # over the batch (its embedding then does not depend on the batch
-        # size, so the views split over ranks give the one-process bits)
-        t = torch.full((1,), float(i_steps[s]), device=dev)
-        et = model(x, t, scales)[..., :3].float()
-        x0_t = (x - et * torch.sqrt(1.0 - at)) / torch.sqrt(at)
-        sigma_t = torch.sqrt(1.0 - at_next ** 2)
-        x0_hat = x0_t - (x0_t * masks - y)
-        c1 = torch.sqrt(1.0 - at_next) * eta
-        c2 = torch.sqrt(1.0 - at_next) * torch.sqrt(
-            torch.tensor(1.0 - eta ** 2, device=dev))
-        x = torch.sqrt(at_next) * x0_hat + sigma_t * (c1 * z + c2 * et)
+        with span("inpaint.step"):
+            if n_sites and act_scales is not None:
+                scales = ActScales("static", act_scales, s)
+            elif n_sites and collect_calib:
+                scales = ActScales("collect", calib, s, group)
+            else:
+                scales = (ActScales(group=group) if group is not None
+                          else DYNAMIC)
+            z = noise[1 + s] if noise is not None else draw()
+            at = torch.tensor(at_arr[s], device=dev)
+            at_next = torch.tensor(at_next_arr[s], device=dev)
+            # every view is at the same step: one timestep row, broadcast
+            # over the batch (its embedding then does not depend on the
+            # batch size, so the views split over ranks give the
+            # one-process bits)
+            t = torch.full((1,), float(i_steps[s]), device=dev)
+            et = model(x, t, scales)[..., :3].float()
+            x0_t = (x - et * torch.sqrt(1.0 - at)) / torch.sqrt(at)
+            sigma_t = torch.sqrt(1.0 - at_next ** 2)
+            x0_hat = x0_t - (x0_t * masks - y)
+            c1 = torch.sqrt(1.0 - at_next) * eta
+            c2 = torch.sqrt(1.0 - at_next) * torch.sqrt(
+                torch.tensor(1.0 - eta ** 2, device=dev))
+            x = (torch.sqrt(at_next) * x0_hat
+                 + sigma_t * (c1 * z + c2 * et))
     out = ((x + 1.0) / 2.0).clamp(0.0, 1.0)
     if mesh is not None:
         out = all_gather_rows(out, mesh.dp)
@@ -179,9 +184,14 @@ class DDNMInpainter:
             generator = torch.Generator(device=masked_imgs.device)
             generator.manual_seed(self.seed)
         if self.static_calib and self.act_scales is None:
-            with self._calib_lock:
+            if not self._calib_lock.acquire(blocking=False):
+                with span("inpaint.calibrate_wait"):
+                    self._calib_lock.acquire()
+            try:
                 if self.static_calib and self.act_scales is None:
                     self._calibrate(masked_imgs, masks, generator)
+            finally:
+                self._calib_lock.release()
         return ddnm_inpaint_batch(self.model, masked_imgs, masks, generator,
                                   self.t_sampling, self.eta,
                                   act_scales=self.act_scales,
@@ -195,12 +205,17 @@ class DDNMInpainter:
         return self.mesh
 
     def _calibrate(self, masked_imgs, masks, generator) -> None:
-        state = generator.get_state()
-        mesh = self._views_mesh(masked_imgs)
-        _, calib = ddnm_inpaint_batch(
-            self.model, masked_imgs, masks, generator, self.t_sampling,
-            self.eta, collect_calib=True, mesh=mesh)
-        generator.set_state(state)
+        with span("inpaint.calibrate"):
+            state = generator.get_state()
+            mesh = self._views_mesh(masked_imgs)
+            _, calib = ddnm_inpaint_batch(
+                self.model, masked_imgs, masks, generator, self.t_sampling,
+                self.eta, collect_calib=True, mesh=mesh)
+            generator.set_state(state)
+            if calib.is_cuda:
+                # once a process: the span then holds the pass's device
+                # work
+                torch.cuda.synchronize(calib.device)
         if calib.shape[0]:
             self.act_scales = (calib * self.calib_margin).float()
         else:                             # no w8a8 sites

@@ -11,7 +11,8 @@ io thread.  Stage caches: the mesh,
 its unwrap (`geo/unwrap_<R>.npz`) and the inpainted views
 (`others/<i>_inpainted.png`).  The unwrap and the HPR hulls run on a host
 thread while the device works; the unwrap thread's own wall and CPU
-seconds are recorded as `unwrap.thread` and `unwrap.thread_cpu`.  With
+seconds are its span `unwrap.thread` and `unwrap.thread_cpu`, the wait
+for it `unwrap.wait` (log.py's spans, named for the shape).  With
 `unproject_by: face` no unwrap runs: each face takes one inpainted view
 (pipeline/face_assign.py) and the mesh is written with one material a
 view.
@@ -25,7 +26,6 @@ caches exist before any of them writes, and only rank 0 writes files.
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -193,6 +193,7 @@ class Pipeline:
         cfg, log, dev = self.cfg, self.logger, self.device
         timer = timer or StageTimer(log)
         name = name or os.path.splitext(os.path.basename(pc_file))[0]
+        timer.shape = name
         out_root = os.path.join(cfg.output_path, name)
         geo_dir = os.path.join(out_root, "geo")
         others_dir = os.path.join(out_root, "others")
@@ -267,10 +268,8 @@ class Pipeline:
                 return z["uvs"], z["face_uv_idx"]
             # the thread's own wall and CPU time: it shares the host with
             # the device stages that run meanwhile
-            t0, c0 = time.perf_counter(), time.thread_time()
-            uv, fuv = punwrap.unwrap(verts, faces, atlas_res=R)
-            timer.record("unwrap.thread", time.perf_counter() - t0)
-            timer.record("unwrap.thread_cpu", time.thread_time() - c0)
+            with timer.span("unwrap.thread", cpu=True):
+                uv, fuv = punwrap.unwrap(verts, faces, atlas_res=R)
             if writes:
                 np.savez(unwrap_cache, uvs=uv, face_uv_idx=fuv)
             return uv, fuv
@@ -361,7 +360,8 @@ class Pipeline:
 
         # ---- unwrap result + atlas bake -------------------------------
         with timer.stage("unwrap"):
-            uvs, face_uv_idx = unwrap_future.result()
+            with timer.span("unwrap.wait"):
+                uvs, face_uv_idx = unwrap_future.result()
             atlas = punwrap.bake_atlas(verts, faces, uvs,
                                        face_uv_idx, R, device=dev)
 
