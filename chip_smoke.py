@@ -385,7 +385,7 @@ def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
 
 
 def check_tensor_cores(path: str) -> None:
-    """K2's bf16 instantiations, K6 and K8's four must hold tensor-core
+    """K2's bf16 instantiations, K6 and K8's two must hold tensor-core
     instructions (HMMA / HGMMA in `cuobjdump -sass` of the built library;
     for K8 the int8 warpgroup product IGMMA, so a K8 on mma.sync's IMMA
     fails); print each count and the registers and spills `-Xptxas -v`
@@ -400,9 +400,8 @@ def check_tensor_cores(path: str) -> None:
             f"attn_mma_kernelILi{hd}ELb{m}E"
             for hd in (16, 32, 64) for m in (0, 1)}
     want["K6"] = "wino_mma_kernel"
-    for bf, nchw in ((1, 1), (1, 0), (0, 1), (0, 0)):
-        want[f"K8 {'bf16' if bf else 'fp32'} {'NCHW' if nchw else 'rows'}"] \
-            = f"int8_conv_kernelILb{bf}ELb{nchw}E"
+    for bf in (1, 0):
+        want[f"K8 {'bf16' if bf else 'fp32'}"] = f"int8_conv_kernelILb{bf}EE"
     with open(path + ".ptxas.txt") as f:
         ptxas = f.read()
     for what, key in want.items():
@@ -646,12 +645,54 @@ def bf16_ulp(v):
                       - 7)
 
 
+# the 552.8M UNet's GroupNorm sites, each one K5 launch a forward: the
+# norms of its 42 ResBlocks (two each), 16 attention blocks and the head
+GN_SITES = 101
+
+
+def unet_split(unet, dev, gen, reps: int = 5) -> None:
+    """Phase 4's UNet, one forward at the sampler's batch (8 views at
+    256^2): profile_unet's kernel time by class with every GroupNorm site
+    on K5, then with every site the unfused chain (the route's predicate
+    replaced for the call), so the norm, elementwise, transpose and conv
+    classes show what the fused route moved; K5 launches a forward."""
+    import torch
+
+    from pointdreamer_tpu_torch import kernels
+    from pointdreamer_tpu_torch.models.diffusion import unet as tunet
+    from pointdreamer_tpu_torch.models.diffusion.unet import DYNAMIC
+    from pointdreamer_tpu_torch.profile_unet import _report, profile_forward
+
+    x = torch.randn((8, 256, 256, 3), generator=gen, device=dev)
+    t = torch.full((1,), 500.0, device=dev)
+    route = tunet._fused_norm_ok
+    for what, ok in (("K5 route", route), ("unfused chain",
+                                            lambda *args: False)):
+        tunet._fused_norm_ok = ok
+        try:
+            kernels.reset_launches()
+            with torch.no_grad():
+                unet(x, t)
+            n = kernels.LAUNCHES["groupnorm"]
+            r = profile_forward(unet, x, t, DYNAMIC, reps)
+        finally:
+            tunet._fused_norm_ok = route
+        print(f"[unet] {what}: K5 launches a forward {n}")
+        _report(what, r, reps)
+        if what == "K5 route" and n != GN_SITES:
+            fail(f"K5 launched {n} times in a forward, not {GN_SITES}")
+    torch.cuda.empty_cache()
+
+
 def check_groupnorm(dev, gen) -> dict:
     """K5 against its plain version at the 552.8M UNet's GroupNorm shapes
-    (bf16 in and out, B = 8): within one bf16 ulp of the output.  Prints,
-    for each shape, the wrapper's ms and its device ms (CUDA-graph
-    replays), F.group_norm's two, and the bound.  Returns the kernel
-    table row (times and bounds summed over the shapes)."""
+    and modes (bf16 in, B = 8): the ResBlocks' scale-shift norms at C 256,
+    512 and 1024, their in-norms, the attention norm, the head's with its
+    fp32 output.  A bf16 output within one bf16 ulp, an fp32 one within
+    2e-5 (the same fp32 statistics summed in another order, an FMA, a
+    fast exp).  Prints, for each shape, the wrapper's ms and its device ms
+    (CUDA-graph replays), F.group_norm's two, and the bound.  Returns the
+    kernel table row (times and bounds summed over the shapes)."""
     import torch
     import torch.nn.functional as F_
 
@@ -668,45 +709,58 @@ def check_groupnorm(dev, gen) -> dict:
     print(f"[K5 groupnorm] resident clusters (blocks, clusters): "
           f"{_resident(dev, True, True)}")
     by = ops = 0.0
-    for (B, S, C), with_ss, silu, what in (
-            ((8, 65536, 256), True, True, "256^2 ResBlock out_norm"),
-            ((8, 65536, 512), False, True, "256^2 first output block"),
-            ((8, 256, 1024), False, False, "16^2 attention norm"),
-            ((8, 64, 2048), False, False, "8^2 output-block concat")):
+    bf, f32 = torch.bfloat16, torch.float32
+    shapes = (
+        ((8, 65536, 256), True, True, bf, "256^2 ResBlock out_norm"),
+        ((8, 65536, 512), False, True, bf, "256^2 first output block"),
+        ((8, 4096, 512), True, True, bf, "64^2 ResBlock out_norm"),
+        ((8, 256, 1024), True, True, bf, "16^2 ResBlock out_norm"),
+        ((8, 256, 1024), False, False, bf, "16^2 attention norm"),
+        ((8, 64, 2048), False, False, bf, "8^2 output-block concat"),
+        ((8, 65536, 256), False, True, f32, "256^2 head norm, fp32 out"))
+    for (B, S, C), with_ss, silu, od, what in shapes:
         x = (torch.randn((B, S, C), generator=gen, device=dev) * 2.0
              + 0.3).to(torch.bfloat16)
         g = torch.randn(C, generator=gen, device=dev) * 0.5 + 1.0
         b = torch.randn(C, generator=gen, device=dev) * 0.2
         ss = (torch.randn((B, 2 * C), generator=gen, device=dev) * 0.3
               if with_ss else None)
-        got = fused_groupnorm(x, g, b, ss, silu=silu)
-        want = fused_groupnorm_plain(x, g, b, ss, silu=silu).float()
+        got = fused_groupnorm(x, g, b, ss, silu=silu, out_dtype=od)
+        want = fused_groupnorm_plain(x, g, b, ss, silu=silu,
+                                     out_dtype=od).float()
         torch.cuda.synchronize()
+        if got.dtype != od:
+            fail(f"K5 {what}: output {got.dtype}, not {od}")
         err = (got.float() - want).abs()
         ulps = float((err / bf16_ulp(want)).max())
-        if not ulps <= 1.0:
-            fail(f"K5 {(B, S, C)}: {ulps} bf16 ulps from its plain version")
+        if od == bf and not ulps <= 1.0:
+            fail(f"K5 {what}: {ulps} bf16 ulps from its plain version")
+        if od == f32 and not float(err.max()) <= 2e-5:
+            fail(f"K5 {what}: {float(err.max())} from its plain version")
         # 30 calls for the wrapper times: at the small shapes they are the
         # host's, which varies from call to call
-        ms = cuda_ms(lambda: fused_groupnorm(x, g, b, ss, silu=silu),
-                     reps=30)
-        gms = graph_ms(lambda: fused_groupnorm(x, g, b, ss, silu=silu))
-        pms = cuda_ms(lambda: fused_groupnorm_plain(x, g, b, ss, silu=silu),
-                      reps=3, warmup=1)
+        ms = cuda_ms(lambda: fused_groupnorm(x, g, b, ss, silu=silu,
+                                             out_dtype=od), reps=30)
+        gms = graph_ms(lambda: fused_groupnorm(x, g, b, ss, silu=silu,
+                                               out_dtype=od))
+        pms = cuda_ms(lambda: fused_groupnorm_plain(
+            x, g, b, ss, silu=silu, out_dtype=od), reps=3, warmup=1)
         xc = x.transpose(1, 2).contiguous()
         gb, bb = g.bfloat16(), b.bfloat16()
         lms = cuda_ms(lambda: F_.group_norm(xc, 32, gb, bb, 1e-5), reps=30)
         glms = graph_ms(lambda: F_.group_norm(xc, 32, gb, bb, 1e-5))
-        # one read of x and one write of y (bf16), gamma/beta/ss once;
+        # one read of x (bf16) and one write of y, gamma/beta/ss once;
         # per element: sum, square, sum of squares, scale, bias, and 3
         # for the scale-shift, 4 for the SiLU
         n = B * S * C
-        b_x = n * 4 + C * 8 + (B * 2 * C * 4 if with_ss else 0)
+        ob = got.element_size()
+        b_x = n * (2 + ob) + C * 8 + (B * 2 * C * 4 if with_ss else 0)
         o_x = n * (5 + 3 * with_ss + 4 * silu)
         b_ms, b_by = bound(b_x, o_x, FP32_OPS_PER_S)
-        plan = launch_plan(B, S, C, 2, 2, _resident(dev, True, True))
+        plan = launch_plan(B, S, C, 2, ob, _resident(dev, True, od == bf))
         print(f"[K5 groupnorm] {what} {[B, S, C]} ss={with_ss} silu={silu} "
-              f"{plan} max_abs_err={float(err.max()):.3g} ({ulps:.3g} bf16 ulp) "
+              f"out={str(od)[6:]} {plan} max_abs_err={float(err.max()):.3g} "
+              f"({ulps:.3g} bf16 ulp) "
               f"ms={ms:.4f} device_ms={gms:.4f} plain_ms={pms:.4f} "
               f"group_norm_ms={lms:.4f} group_norm_device_ms={glms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}; device time "
@@ -719,7 +773,7 @@ def check_groupnorm(dev, gen) -> dict:
         ops += o_x
         del x, got, want, err, xc
     row["bound_ms"], row["bound_by"] = bound(by, ops, FP32_OPS_PER_S)
-    print(f"[K5 groupnorm] 4 shapes: ms={row['ms']:.4f} "
+    print(f"[K5 groupnorm] {len(shapes)} shapes: ms={row['ms']:.4f} "
           f"plain_ms={row['plain_ms']:.4f} "
           f"group_norm_ms={row['library_ms']:.4f} "
           f"bound_ms={row['bound_ms']:.4f}")
@@ -1630,11 +1684,11 @@ def dataset_phase(pipe, ply_alone: str, work: str, gt_dir: str,
         fail(f"run_dataset statuses {res}, not {want}")
     want_launches = {"raster_binned": 8, "raster_legacy": 0,
                      "attention_qkv": 3200, "segment_sum": 200,
-                     "groupnorm": 0, "winograd_conv3x3": 0,
+                     "groupnorm": 2 * GN_SITES * 100, "winograd_conv3x3": 0,
                      "quantize_act": 0, "int8_conv": 0}
     if launches != want_launches:
         fail(f"run_dataset launches {launches}, not {want_launches} (two "
-             f"shapes: K1 3 + 1 render, K2 1600, K3 100 each)")
+             f"shapes: K1 3 + 1 render, K2 1600, K3 100, K5 10,100 each)")
     for n in ("cube", "sphere"):
         if sorted(os.listdir(res[n]["renders"])) != \
                 [f"{i:03d}.png" for i in range(20)]:
@@ -1711,34 +1765,34 @@ def selfparity_phase(work: str) -> None:
         fail(f"self-parity: mean {mean} dB over {SELFPARITY_SEEDS} seeds < 30")
 
 
-# K8's shapes in phase 9 (a): (what, B, Cin, H, W, Cout, k, stride, rows);
-# the first five are the 552.8M UNet's own (its largest 3x3, its
-# 1024-wide 3x3 at 16^2 and at 8^2, both split-K, an output block's 1x1
-# skip, the qkv of an attention block at 32^2), the last the stride-2 path
-# at a small shape
+# K8's shapes in phase 9 (a): (what, B, Cin, H, W, Cout, k, stride); the
+# first five are the 552.8M UNet's own (its largest 3x3, its 1024-wide
+# 3x3 at 16^2 and at 8^2, both split-K, an output block's 1x1 skip, the
+# qkv of an attention block at 32^2: QDense8's [b, t, c] is H = t, W =
+# 1), the last the stride-2 path at a small shape
 K8_SHAPES = (
-    ("3x3 256->256 at 8x256^2", 8, 256, 256, 256, 256, 3, 1, False),
-    ("3x3 1024->1024 at 8x16^2", 8, 1024, 16, 16, 1024, 3, 1, False),
-    ("3x3 1024->1024 at 8x8^2", 8, 1024, 8, 8, 1024, 3, 1, False),
-    ("1x1 skip 768->512 at 8x64^2", 8, 768, 64, 64, 512, 1, 1, False),
-    ("dense qkv 512->1536 over 8x32^2 rows", 8, 512, 1024, 1, 1536, 1, 1,
-     True),
-    ("3x3 stride 2 256->256 at 2x64^2", 2, 256, 64, 64, 256, 3, 2, False),
+    ("3x3 256->256 at 8x256^2", 8, 256, 256, 256, 256, 3, 1),
+    ("3x3 1024->1024 at 8x16^2", 8, 1024, 16, 16, 1024, 3, 1),
+    ("3x3 1024->1024 at 8x8^2", 8, 1024, 8, 8, 1024, 3, 1),
+    ("1x1 skip 768->512 at 8x64^2", 8, 768, 64, 64, 512, 1, 1),
+    ("dense qkv 512->1536 over 8x32^2 rows", 8, 512, 1024, 1, 1536, 1, 1),
+    ("3x3 stride 2 256->256 at 2x64^2", 2, 256, 64, 64, 256, 3, 2),
 )
 
 
 def check_quant(dev, gen) -> list:
     """Phase 9 (a): K7 and K8 against their plain versions at K8_SHAPES
-    (bf16 activations): K7's int8 output, ax and the amax it records bit
-    for bit, also with a static amax from a scale table, and channels last
-    at the attention's proj shape; K8 within one bf16 ulp at every
-    element, also from those rows to NCHW, with K8's launch plan.  Prints
+    (bf16 activations), called as QConv8 calls them: K7 on the NHWC view
+    of a channels-last NCHW activation, K8 writing rows.  K7's int8
+    output, ax and the amax it records bit for bit, also with a static
+    amax from a scale table, and at the attention's proj ([b, t, c]); K8
+    within one bf16 ulp at every element, with its launch plan.  Prints
     for each shape the wrapper's and the device (CUDA graph) ms of both
     (K7 static, the recon's mode, and dynamic), their bounds (K7 static:
     x read once, int8 written; dynamic: x read twice), the plain
     versions' ms, the library's: for K7 torch.quantize_per_tensor of x
     cast to fp32 (cast included; it clamps to -128 and multiplies by
-    1 / scale, so it is not bit-equal, and it leaves NCHW), for K8 the
+    1 / scale, so it is not bit-equal), for K8 the
     int8 product of torch._int_mm (for a conv after F.unfold) and bf16
     F.conv2d (channels last).  Returns the two kernel-table rows, times
     and bounds summed over the shapes (K7's in static mode, its dynamic
@@ -1758,19 +1812,23 @@ def check_quant(dev, gen) -> list:
             for n, line in (("quantize_act", 92), ("int8_conv", 95))}
     dyn = dict(ms=0.0, device_ms=0.0, bytes=0.0)   # K7 with dynamic amax
 
-    def k7_same(what, x, channels_last, static):
-        q, ax = kq.quantize_act(x, channels_last, static)
-        q_p, ax_p = kq.quantize_act_plain(x, channels_last, static)
+    def k7_same(what, x, static):
+        q, ax = kq.quantize_act(x, static)
+        q_p, ax_p = kq.quantize_act_plain(x, static)
         torch.cuda.synchronize()
         if not (torch.equal(q, q_p) and torch.equal(ax, ax_p)):
             fail(f"K7 {what}: {int((q != q_p).sum())} int8 entries, ax "
                  f"{float(ax)} vs {float(ax_p)}")
         return q, ax
 
-    for what, B, Cin, H, W, N, k, s, as_rows in K8_SHAPES:
+    for what, B, Cin, H, W, N, k, s in K8_SHAPES:
         pad = 1 if k == 3 else 0
-        x = (torch.randn((B, Cin, H, W), generator=gen, device=dev) * 1.7
-             + 0.2).to(torch.bfloat16)
+        # the torso's activation (channels last in memory) and the NHWC
+        # view of it that QConv8 hands K7
+        xc = (torch.randn((B, Cin, H, W), generator=gen, device=dev) * 1.7
+              + 0.2).to(torch.bfloat16).contiguous(
+                  memory_format=torch.channels_last)
+        x = xc.permute(0, 2, 3, 1)
         slot = torch.zeros(2, device=dev)
         q, ax = kq.quantize_act(x, calib_out=slot[1:2])
         q_p, ax_p = kq.quantize_act_plain(x)
@@ -1785,13 +1843,13 @@ def check_quant(dev, gen) -> list:
         # [sites, steps] table, below max |x| (entries saturate)
         table = torch.zeros((3, 4), device=dev)
         table[1, 2] = amax_p * 0.7
-        k7_same(f"{what}, static", x, False, table[1, 2:3])
+        k7_same(f"{what}, static", x, table[1, 2:3])
         xq = q.view(B, H, W, Cin)
         wq = torch.randint(-127, 128, (N, k * k * Cin), generator=gen,
                            device=dev, dtype=torch.int8)
         ks = torch.rand(N, generator=gen, device=dev) * 2e-3 + 1e-4
         bias = torch.randn(N, generator=gen, device=dev) * 0.1
-        args = (xq, wq, ax, ks, bias, k, k, s, pad, torch.bfloat16, as_rows)
+        args = (xq, wq, ax, ks, bias, k, k, s, pad, torch.bfloat16)
         y = kq.int8_conv(*args)
         y_p = kq.int8_conv_plain(*args).float()
         torch.cuda.synchronize()
@@ -1802,11 +1860,11 @@ def check_quant(dev, gen) -> list:
         # times: the wrapper (host included) and the device (CUDA graph);
         # K7 static (the recon's mode) and dynamic
         slot = table[1, 2:3]
-        ms7 = cuda_ms(lambda: kq.quantize_act(x, False, slot))
-        gms7 = graph_ms(lambda: kq.quantize_act(x, False, slot))
+        ms7 = cuda_ms(lambda: kq.quantize_act(x, slot))
+        gms7 = graph_ms(lambda: kq.quantize_act(x, slot))
         dms7 = cuda_ms(lambda: kq.quantize_act(x))
         dgms7 = graph_ms(lambda: kq.quantize_act(x))
-        pms7 = cuda_ms(lambda: kq.quantize_act_plain(x, False, slot),
+        pms7 = cuda_ms(lambda: kq.quantize_act_plain(x, slot),
                        reps=3, warmup=1)
         scale = float(kq.act_scale(table[1, 2]))
         lms7 = cuda_ms(lambda: torch.quantize_per_tensor(
@@ -1833,7 +1891,6 @@ def check_quant(dev, gen) -> list:
         lib_same = torch.equal(acc_lib.view(acc_p.shape), acc_p)
         del acc_lib, acc_p
         lms = cuda_ms(lib, reps=5, warmup=1)
-        xc = x.contiguous(memory_format=torch.channels_last)
         wb = torch.randn((N, Cin, k, k), generator=gen, device=dev).to(
             torch.bfloat16).contiguous(memory_format=torch.channels_last)
         cms = cuda_ms(lambda: F_.conv2d(xc, wb, None, s, pad))
@@ -1883,29 +1940,29 @@ def check_quant(dev, gen) -> list:
             r["max_abs_err"] = max(r["max_abs_err"], e)
         del x, q, q_p, xq, wq, y, y_p, err, xc, wb
         torch.cuda.empty_cache()
-    # the attention's proj: K7 channels last (the [b, t, c] K2 writes),
-    # dynamic and static, and K8 from those rows back to NCHW
+    # the attention's proj: K7 on the [b, t, c] K2 writes, dynamic and
+    # static, and K8 to rows
     B, T, C = 8, 1024, 512
     x = (torch.randn((B, T, C), generator=gen, device=dev) * 1.7
          + 0.2).to(torch.bfloat16)
     table = torch.zeros((3, 4), device=dev)
     table[2, 1] = x.float().abs().amax() * 0.7
-    k7_same("proj 512->512 rows, static", x, True, table[2, 1:2])
-    q, ax = k7_same("proj 512->512 rows", x, True, None)
+    k7_same("proj 512->512 rows, static", x, table[2, 1:2])
+    q, ax = k7_same("proj 512->512 rows", x, None)
     wq = torch.randint(-127, 128, (C, C), generator=gen, device=dev,
                        dtype=torch.int8)
     ks = torch.rand(C, generator=gen, device=dev) * 2e-3 + 1e-4
     bias = torch.randn(C, generator=gen, device=dev) * 0.1
     args = (q.view(B, T, 1, C), wq, ax, ks, bias, 1, 1, 1, 0,
-            torch.bfloat16, False)
+            torch.bfloat16)
     y = kq.int8_conv(*args)
     y_p = kq.int8_conv_plain(*args).float()
     ulps = float(((y.float() - y_p).abs() / bf16_ulp(y_p)).max())
-    print(f"[K7 quantize_act] proj 512->512 over 8x32^2 rows (channels "
-          f"last): bit-equal, dynamic and static; [K8 int8_conv] to NCHW "
-          f"{list(y.shape)}: {ulps:.3g} bf16 ulp")
+    print(f"[K7 quantize_act] proj 512->512 over 8x32^2 rows: bit-equal, "
+          f"dynamic and static; [K8 int8_conv] to rows {list(y.shape)}: "
+          f"{ulps:.3g} bf16 ulp")
     if not ulps <= 1.0:
-        fail(f"K8 proj 512->512 to NCHW: {ulps} bf16 ulps from its plain "
+        fail(f"K8 proj 512->512 to rows: {ulps} bf16 ulps from its plain "
              f"version")
     del x, q, wq, y, y_p
     out = []
@@ -1944,7 +2001,8 @@ def w8a8_recon(ply: str, work: str, cfg_path: str, bf16_out: str,
     """Phase 9 (b): configs/default.yaml with ddnm_quant_int8 (static
     scales) on the cached-mesh cube: Pipeline.create builds the w8a8
     552.8M UNet, the first recon calibrates (two samplers: K7 and K8 at
-    2 x 136 x 100, K2 3200), the second is timed (136 x 100, K2 1600);
+    2 x 136 x 100, K5 2 x 101 x 100, K2 3200), the second is timed (136 x
+    100, K5 101 x 100, K2 1600);
     phase 4's output checks; inpaint seconds beside phase 4's bf16 ones;
     the inpainted views against phase 4's (the same sparse views and
     draws)."""
@@ -1991,7 +2049,8 @@ def w8a8_recon(ply: str, work: str, cfg_path: str, bf16_out: str,
         want = {"quantize_act": n * n_sites * steps,
                 "int8_conv": n * n_sites * steps,
                 "attention_qkv": n * 1600, "segment_sum": 100,
-                "raster_legacy": 0, "groupnorm": 0, "winograd_conv3x3": 0}
+                "raster_legacy": 0, "groupnorm": n * GN_SITES * steps,
+                "winograd_conv3x3": 0}
         got = {k: launches[k] for k in want}
         if got != want or launches["raster_binned"] < 3:
             fail(f"w8a8 {what} launches {launches}, not {want} and K1 >= 3")
@@ -4244,8 +4303,8 @@ def main() -> int:
 
     del proj, uv_map, fg, contrib
 
-    # K2 beyond the inference shapes, K5 and K6 (no caller on the main
-    # paths: their launches there are 0)
+    # K2 beyond the inference shapes, K5 at the UNet's shapes, K6 (no
+    # caller on the main paths: its launches there are 0)
     check_attention_training(dev, gen)
     table.append(check_groupnorm(dev, gen))
     table.append(check_winograd(dev, gen))
@@ -4262,6 +4321,7 @@ def main() -> int:
           f"built in {time.perf_counter() - t0:.2f} s")
     if n_params != 552_814_086:
         fail(f"UNet has {n_params} parameters, not 552,814,086")
+    unet_split(unet, dev, gen)
     t0 = time.perf_counter()
     pipe.recon_one_textured_mesh(ply)
     torch.cuda.synchronize()
@@ -4280,6 +4340,9 @@ def main() -> int:
     print(f"[e2e] launches {json.dumps(launches)}")
     if launches["attention_qkv"] != 1600:
         fail(f"K2 launched {launches['attention_qkv']} times, not 1600")
+    if launches["groupnorm"] != GN_SITES * 100:
+        fail(f"K5 launched {launches['groupnorm']} times, not "
+             f"{GN_SITES * 100} (every GroupNorm site of 100 forwards)")
     if launches["segment_sum"] != 100:
         fail(f"K3 launched {launches['segment_sum']} times, not 100")
     if launches["raster_binned"] < 3:
@@ -4309,7 +4372,7 @@ def main() -> int:
     print(f"[geometry] launches {json.dumps(launches)}")
     want_launches = {"raster_legacy": 2, "raster_binned": 1,
                      "attention_qkv": 1600, "segment_sum": 100,
-                     "groupnorm": 0, "winograd_conv3x3": 0,
+                     "groupnorm": GN_SITES * 100, "winograd_conv3x3": 0,
                      "quantize_act": 0, "int8_conv": 0}
     if launches != want_launches:
         fail(f"launches {launches}, not {want_launches}")

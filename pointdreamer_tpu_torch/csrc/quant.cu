@@ -9,23 +9,17 @@
 // fp32 epilogue y = acc * (ax * ks[n]) + b[n].  PyTorch has no int8
 // convolution on the card, so the port carries both here.
 //
-// K7 (pd_quantize_act): x bf16 or fp32, [B, C, S] (the port's NCHW torso,
-// S = H * W) or [B, S, C] (channels last: the attention output), to int8
-// [B, S, C], the layout K8 reads.  The amax is either reduced here (a
+// K7 (pd_quantize_act): x bf16 or fp32, channels last [B, S, C] (the
+// torso's NHWC activations, S = H * W, or the attention's [b, t, c]), to
+// int8 [B, S, C], the layout K8 reads.  The amax is either reduced here (a
 // grid-stride pass of 16-byte loads, a warp and block max, one atomicMax
 // a block on the int bits of the non-negative float, exact) or read from
 // a device pointer (a static per-step scale); it is optionally written to
 // a calibration slot.  ax goes to a device scalar: nothing is read back
 // to the host.  The quantize divides (IEEE, no fast math) and rounds half
 // to even (rintf), as jnp.round does.  Bound: bytes (x read once and int8
-// written; a dynamic amax reads x a second time).  From NCHW one block
-// takes 64 channels x 256 pixels: each thread loads 16 bytes (8 pixels)
-// of 4 channels, so a warp's load is 512 contiguous bytes of one channel;
-// it packs the 8 pixels x 4 channels into eight 4-byte words (a pixel's 4
-// channels each), stores them into a [pixel][channel] tile whose 4-byte
-// columns are XOR-swizzled by the pixel row (two-way bank conflicts), and
-// threads store 16 channels of one pixel (16 bytes) each.  Channels last
-// is elementwise: 16-byte loads, 8-byte stores.  After a dynamic amax pass
+// written; a dynamic amax reads x a second time).  The quantize is
+// elementwise: 16-byte loads, 8-byte stores.  After a dynamic amax pass
 // (which walks x forward) the quantize pass walks it backward, so what the
 // amax pass read last, still in the 50 MB L2, is read first.
 //
@@ -59,10 +53,9 @@
 // times ax * ks[n], plus b[n], each rounded apart (__fmul_rn, __fadd_rn:
 // no contraction); the tile's (ax * ks[n], b[n]) are staged in shared
 // memory once.  64 (bf16) or 32 (fp32) columns a pass go through a
-// shared-memory tile, [channel][pixel] for NCHW and [pixel][channel] for
-// rows (bf16 by stmatrix, transposed for NCHW), and out as 16-byte
-// vectors: a channel's consecutive pixels, or a pixel's consecutive
-// channels.
+// shared-memory tile [pixel][channel] (bf16 by stmatrix), and out as
+// 16-byte vectors of a pixel's consecutive channels: the output is rows
+// [M, N], NHWC.
 //   Split-K.  Where the tiles fill less than the SMs (the 16^2 and 8^2
 // layers) the K loop is split across work units in (tap, chunk) order;
 // each stores its int32 partial sums into its own slice of a workspace,
@@ -159,110 +152,23 @@ __device__ __forceinline__ void publish(const float* amax, float ax,
   }
 }
 
-// 8 consecutive values of one row (zeros past its end), by 16-byte loads
-// where the row allows them
-__device__ __forceinline__ void load8(const bf16* row, int s, int S,
-                                      bool vec, float (&v)[8]) {
-  if (vec && s + 8 <= S) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(row + s));
-    const bf16* e = reinterpret_cast<const bf16*>(&u);
+// 8 consecutive values from a 16-byte aligned address, by 16-byte loads
+__device__ __forceinline__ void load8(const bf16* x, float (&v)[8]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(x));
+  const bf16* e = reinterpret_cast<const bf16*>(&u);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(e[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      v[i] = s + i < S ? __bfloat162float(row[s + i]) : 0.0f;
-  }
+  for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(e[i]);
 }
 
-__device__ __forceinline__ void load8(const float* row, int s, int S,
-                                      bool vec, float (&v)[8]) {
-  if (vec && s + 8 <= S) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(row + s));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(row + s + 4));
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = s + i < S ? row[s + i] : 0.0f;
-  }
+__device__ __forceinline__ void load8(const float* x, float (&v)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(x));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(x + 4));
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-constexpr int kQC = 64;            // channels a block
-constexpr int kQP = 256;           // pixels a block
-constexpr int kQThreads = 256;
-
-// [B, C, S] -> int8 [B, S, C].  The tile is [pixel][16 words of 4
-// channels]; word w of pixel row p sits at w ^ ((p >> 3) & 15).
-template <typename T>
-__global__ void __launch_bounds__(kQThreads)
-    quant_nchw_kernel(const T* __restrict__ x, int C, int S, int tiles_s,
-                      int tiles_c, int reverse, const float* amax,
-                      float* ax_out, float* calib, int8_t* __restrict__ q) {
-  __shared__ __align__(16) uint32_t tile[kQP * kQC / 4];
-  const float ax = act_scale(*amax);
-  const int blk = reverse ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int ts = blk % tiles_s, tc = (blk / tiles_s) % tiles_c;
-  const int b = blk / (tiles_s * tiles_c);
-  const int c0 = tc * kQC, s0 = ts * kQP;
-  const T* xb = x + (size_t)b * C * S;
-  const bool vec = S % 8 == 0;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int it = 0; it < 2; ++it) {
-    const int cq = warp + 8 * it;            // channel quad
-    const int p = lane * 8;                   // first of 8 pixels
-    uint32_t packed[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) packed[i] = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + 4 * cq + j;
-      if (c >= C) continue;
-      float v[8];
-      load8(xb + (size_t)c * S, s0 + p, S, vec, v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) packed[i] |= quant_byte(v[i], ax) << (8 * j);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int pl = p + i;
-      tile[pl * 16 + (cq ^ ((pl >> 3) & 15))] = packed[i];
-    }
-  }
-  __syncthreads();
-  int8_t* qb = q + (size_t)b * S * C;
-  const bool cvec = C % 16 == 0;
-#pragma unroll
-  for (int it = 0; it < 4; ++it) {
-    const int idx = threadIdx.x + kQThreads * it;
-    const int pl = idx >> 2, g = idx & 3, s = s0 + pl;
-    if (s >= S) continue;
-    const int h = (pl >> 3) & 15, hs = h & 3;
-    const uint4 u = *reinterpret_cast<const uint4*>(
-        &tile[pl * 16 + 4 * (g ^ (h >> 2))]);
-    // logical word k of the granule sits at k ^ hs
-    const uint32_t w01 = hs & 1 ? u.y : u.x, w10 = hs & 1 ? u.x : u.y;
-    const uint32_t w23 = hs & 1 ? u.w : u.z, w32 = hs & 1 ? u.z : u.w;
-    uint4 o;
-    o.x = hs & 2 ? w23 : w01;
-    o.y = hs & 2 ? w32 : w10;
-    o.z = hs & 2 ? w01 : w23;
-    o.w = hs & 2 ? w10 : w32;
-    const int c = c0 + 16 * g;
-    int8_t* dst = qb + (size_t)s * C + c;
-    if (cvec && c + 16 <= C) {
-      *reinterpret_cast<uint4*>(dst) = o;
-    } else {
-      const int8_t* ob = reinterpret_cast<const int8_t*>(&o);
-      for (int k = 0; k < 16 && c + k < C; ++k) dst[k] = ob[k];
-    }
-  }
-  publish(amax, ax, ax_out, calib);
-}
-
-// channels last: the same layout in and out, 8 elements a thread (16-byte
-// loads of bf16, 8-byte stores)
+// the same layout in and out, 8 elements a thread (16-byte loads of bf16,
+// 8-byte stores)
 template <typename T>
 __global__ void __launch_bounds__(256)
     quant_flat_kernel(const T* __restrict__ x, size_t n, int reverse,
@@ -275,7 +181,7 @@ __global__ void __launch_bounds__(256)
        i += step) {
     const size_t j = reverse ? nv - 1 - i : i;
     float w[8];
-    load8(x + j * 8, 0, 8, true, w);
+    load8(x + j * 8, w);
     uint2 o;
     o.x = quant_byte(w[0], ax) | quant_byte(w[1], ax) << 8 |
           quant_byte(w[2], ax) << 16 | quant_byte(w[3], ax) << 24;
@@ -290,10 +196,9 @@ __global__ void __launch_bounds__(256)
 }
 
 template <typename T>
-void launch_quant(const void* x, int B, int C, int S, int channels_last,
-                  float* amax_scratch, const float* amax_static, float* calib,
-                  void* q, float* ax, cudaStream_t st) {
-  const size_t n = (size_t)B * C * S;
+void launch_quant(const void* x, size_t n, float* amax_scratch,
+                  const float* amax_static, float* calib, void* q, float* ax,
+                  cudaStream_t st) {
   const float* amax = amax_static;
   const int reverse = amax_static ? 0 : 1;
   if (!amax) {
@@ -304,18 +209,11 @@ void launch_quant(const void* x, int B, int C, int S, int channels_last,
         static_cast<const T*>(x), n, amax_scratch);
     amax = amax_scratch;
   }
-  if (channels_last) {
-    size_t blocks = (n / 8 + 255) / 256;
-    blocks = blocks < 1 ? 1 : (blocks > 132 * 16 ? 132 * 16 : blocks);
-    quant_flat_kernel<T><<<(int)blocks, 256, 0, st>>>(
-        static_cast<const T*>(x), n, reverse, amax, ax, calib,
-        static_cast<int8_t*>(q));
-  } else {
-    const int tiles_s = (S + kQP - 1) / kQP, tiles_c = (C + kQC - 1) / kQC;
-    quant_nchw_kernel<T><<<B * tiles_c * tiles_s, kQThreads, 0, st>>>(
-        static_cast<const T*>(x), C, S, tiles_s, tiles_c, reverse, amax, ax,
-        calib, static_cast<int8_t*>(q));
-  }
+  size_t blocks = (n / 8 + 255) / 256;
+  blocks = blocks < 1 ? 1 : (blocks > 132 * 16 ? 132 * 16 : blocks);
+  quant_flat_kernel<T><<<(int)blocks, 256, 0, st>>>(
+      static_cast<const T*>(x), n, reverse, amax, ax, calib,
+      static_cast<int8_t*>(q));
 }
 
 // ---- K8 -------------------------------------------------------------
@@ -325,9 +223,8 @@ constexpr int kMaxChunk = 128;            // K bytes a stage, at most
 constexpr int kStages = 4;
 constexpr int kStageA = kBM * kMaxChunk;  // 16 KiB
 constexpr int kStageB = kBN * kMaxChunk;  // 32 KiB
-// epilogue staging, a pass of 64 (bf16) or 32 (fp32) columns: the larger
-// of [64][128 + 8] bf16 / [32][128 + 4] fp32 (NCHW) and [128][64 + 8] bf16
-// / [128][32 + 4] fp32 (rows)
+// epilogue staging, a pass of 64 (bf16) or 32 (fp32) columns: [128][64 +
+// 8] bf16 or [128][32 + 4] fp32
 constexpr int kEpiBytes = 128 * 72 * 2;
 constexpr int kScBiBytes = kBN * 8;       // (ax * ks[n], b[n]) of the tile
 constexpr int kConvThreads = 384;         // producer WG + 2 consumer WGs
@@ -557,41 +454,26 @@ struct EpiTraits {
   typedef typename std::conditional<kBf16Out, bf16, float>::type OutT;
   static constexpr int kVW = 16 / sizeof(OutT);     // elements a vector
   static constexpr int kPassN = kBf16Out ? 64 : 32;  // columns a pass
-  static constexpr int kLdN = kBM + kVW;             // NCHW staging row
-  static constexpr int kLdR = kPassN + kVW;          // rows staging row
-  // copy-out: NCHW, a thread stores one run of kVW pixels of every
-  // kChStep-th channel; rows, kVW channels of every kRowStep-th row
-  static constexpr int kRuns = kBM / kVW, kChStep = 256 / kRuns;
+  static constexpr int kLdR = kPassN + kVW;          // staging row
+  // copy-out: a thread stores kVW channels of every kRowStep-th row
   static constexpr int kRowStep = 256 / (kPassN / kVW);
 };
 
-// the output pixels a consumer thread stores in every pass of a tile,
-// worked out once a tile: NCHW, the first and last pixel of its run
-// (`vec`: a 16-byte store of consecutive pixels); rows, its four rows
+// the output pixels of the four rows a consumer thread stores in every
+// pass of a tile, worked out once a tile
 struct EpiRows {
   Pix px[4];
-  bool vec;
 };
 
-template <bool kBf16Out, bool kNchw>
+template <bool kBf16Out>
 __device__ __forceinline__ EpiRows epi_rows(const ConvParams& p, int mt,
                                             int ct) {
   typedef EpiTraits<kBf16Out> Tr;
   EpiRows e;
-  if (kNchw) {
-    const int r0 = (ct % Tr::kRuns) * Tr::kVW;
-    const Pix a = row_pixel(p, mt, r0);
-    const Pix z = row_pixel(p, mt, r0 + Tr::kVW - 1);
-    e.px[0] = a;
-    e.vec = a.ok && z.ok && a.b == z.b && z.pix == a.pix + Tr::kVW - 1 &&
-            a.pix % Tr::kVW == 0 && p.HWo % Tr::kVW == 0;
-  } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      e.px[i] = row_pixel(p, mt, ct / (Tr::kPassN / Tr::kVW) +
-                                     Tr::kRowStep * i);
-    e.vec = false;
-  }
+  for (int i = 0; i < 4; ++i)
+    e.px[i] = row_pixel(p, mt, ct / (Tr::kPassN / Tr::kVW) +
+                                   Tr::kRowStep * i);
   return e;
 }
 
@@ -600,43 +482,33 @@ __device__ __forceinline__ EpiRows epi_rows(const ConvParams& p, int mt,
 // then the next pass
 // stmatrix: four 8x8 b16 matrices from the mma fragment layout (lane
 // 4 i + t holds row i, columns 2 t, 2 t + 1 of each) to shared memory,
-// lanes 8 m .. 8 m + 7 giving the addresses of matrix m's rows; `.trans`
-// stores each matrix transposed
-template <bool kTrans>
+// lanes 8 m .. 8 m + 7 giving the addresses of matrix m's rows
 __device__ __forceinline__ void stmatrix_x4(const void* row,
                                             const uint32_t (&r)[4]) {
-  if constexpr (kTrans)
-    asm volatile(
-        "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, "
-        "%4};\n" ::"r"(tc::smem_u32(row)),
-        "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
-        : "memory");
-  else
-    asm volatile(
-        "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
-            "r"(tc::smem_u32(row)),
-        "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
-        : "memory");
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(tc::smem_u32(row)),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
 }
 
 // columns [kPass * kPassN, (kPass + 1) * kPassN) of the tile: dequantize
 // (the JAX order), stage through shared memory, store 16-byte vectors;
 // then the next pass.  Element i of acc: row 16 (ct / 32) + (lane / 4) + 8
 // ((i / 2) & 1), column 8 (i / 4) + 2 (lane & 3) + (i & 1).
-template <bool kBf16Out, bool kNchw, int kPass>
+template <bool kBf16Out, int kPass>
 __device__ __forceinline__ void epilogue(
     const ConvParams& p, const int (&acc)[128], const Unit& w, int ct,
     const EpiRows& er, typename EpiTraits<kBf16Out>::OutT* sE,
     const float2* scbi) {
   typedef EpiTraits<kBf16Out> Tr;
   typedef typename Tr::OutT OutT;
-  constexpr int kVW = Tr::kVW, kPassN = Tr::kPassN, kLdN = Tr::kLdN,
-                kLdR = Tr::kLdR;
+  constexpr int kVW = Tr::kVW, kPassN = Tr::kPassN, kLdR = Tr::kLdR;
   const int lane = ct & 31, rw = (ct >> 5) * 16, cbase = 2 * (lane & 3);
   consumer_sync();                        // the staging tile is free
   if constexpr (kBf16Out) {
     // two n8 column blocks (four 8x8 matrices: rows 0-7 and 8-15 of each)
-    // a stmatrix; NCHW stores them transposed, [channel][pixel]
+    // a stmatrix
 #pragma unroll
     for (int jj = 0; jj < kPassN / 16; ++jj) {
       const int j0 = kPass * kPassN / 8 + 2 * jj;
@@ -656,10 +528,7 @@ __device__ __forceinline__ void epilogue(
       const int mi = lane >> 3, k = lane & 7;
       const int cl = 8 * (j0 + (mi >> 1)) - kPass * kPassN;
       const int row = rw + 8 * (mi & 1);
-      if (kNchw)
-        stmatrix_x4<true>(sE + (cl + k) * kLdN + row, r);
-      else
-        stmatrix_x4<false>(sE + (row + k) * kLdR + cl, r);
+      stmatrix_x4(sE + (row + k) * kLdR + cl, r);
     }
   } else {
 #pragma unroll
@@ -673,10 +542,7 @@ __device__ __forceinline__ void epilogue(
           const float v = __fadd_rn(
               __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + e]), sb.x), sb.y);
           const int r = rw + (lane >> 2) + 8 * h, cl = col - kPass * kPassN;
-          if (kNchw)
-            sE[cl * kLdN + r] = v;
-          else
-            sE[r * kLdR + cl] = v;
+          sE[r * kLdR + cl] = v;
         }
       }
     }
@@ -684,49 +550,28 @@ __device__ __forceinline__ void epilogue(
   consumer_sync();
   OutT* out = static_cast<OutT*>(p.out);
   const int nb = w.n0 + kPass * kPassN;
-  if (kNchw) {
-    constexpr int kRuns = Tr::kRuns, kChStep = Tr::kChStep;
-    const int r0 = (ct % kRuns) * kVW;
-    const Pix a = er.px[0];
-    for (int cl = ct / kRuns; cl < kPassN && nb + cl < p.N; cl += kChStep) {
-      const int n = nb + cl;
-      const OutT* src = sE + cl * kLdN + r0;
-      if (er.vec) {
-        *reinterpret_cast<uint4*>(
-            out + (size_t)(a.b * p.N + n) * p.HWo + a.pix) =
-            *reinterpret_cast<const uint4*>(src);
-      } else {
-        for (int k = 0; k < kVW; ++k) {
-          const Pix q = row_pixel(p, w.mt, r0 + k);
-          if (q.ok) out[(size_t)(q.b * p.N + n) * p.HWo + q.pix] = src[k];
-        }
-      }
-    }
-  } else {
-    const int cl = (ct % (kPassN / kVW)) * kVW, n = nb + cl;
-    if (n < p.N) {
-      const bool vec = p.N % kVW == 0 && n + kVW <= p.N;
+  const int cl = (ct % (kPassN / kVW)) * kVW, n = nb + cl;
+  if (n < p.N) {
+    const bool vec = p.N % kVW == 0 && n + kVW <= p.N;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ct / (kPassN / kVW) + Tr::kRowStep * i;
-        const Pix q = er.px[i];
-        if (!q.ok) continue;
-        const OutT* src = sE + r * kLdR + cl;
-        OutT* dst = out + ((size_t)q.b * p.HWo + q.pix) * p.N + n;
-        if (vec) {
-          *reinterpret_cast<uint4*>(dst) =
-              *reinterpret_cast<const uint4*>(src);
-        } else {
-          for (int k = 0; k < kVW && n + k < p.N; ++k) dst[k] = src[k];
-        }
+    for (int i = 0; i < 4; ++i) {
+      const int r = ct / (kPassN / kVW) + Tr::kRowStep * i;
+      const Pix q = er.px[i];
+      if (!q.ok) continue;
+      const OutT* src = sE + r * kLdR + cl;
+      OutT* dst = out + ((size_t)q.b * p.HWo + q.pix) * p.N + n;
+      if (vec) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int k = 0; k < kVW && n + k < p.N; ++k) dst[k] = src[k];
       }
     }
   }
   if constexpr ((kPass + 1) * kPassN < kBN)
-    epilogue<kBf16Out, kNchw, kPass + 1>(p, acc, w, ct, er, sE, scbi);
+    epilogue<kBf16Out, kPass + 1>(p, acc, w, ct, er, sE, scbi);
 }
 
-template <bool kBf16Out, bool kNchw>
+template <bool kBf16Out>
 __global__ void __launch_bounds__(kConvThreads, 1)
     int8_conv_kernel(const __grid_constant__ ConvParams p) {
   typedef typename EpiTraits<kBf16Out>::OutT OutT;
@@ -873,9 +718,8 @@ __global__ void __launch_bounds__(kConvThreads, 1)
 
       // the tile's column scales and biases, read by every pass
       sScBi[ct] = make_float2(__fmul_rn(axv, ks_n), b_n);
-      epilogue<kBf16Out, kNchw, 0>(p, acc, w, ct,
-                                   epi_rows<kBf16Out, kNchw>(p, w.mt, ct),
-                                   sE, sScBi);
+      epilogue<kBf16Out, 0>(p, acc, w, ct, epi_rows<kBf16Out>(p, w.mt, ct),
+                            sE, sScBi);
     }
   }
 }
@@ -921,33 +765,32 @@ bool encode(CUtensorMap* map, const void* base, int rank,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool kBf16Out, bool kNchw>
+template <bool kBf16Out>
 cudaError_t launch_conv(const ConvParams& p, int grid, cudaStream_t st) {
   static bool attr_set = false;    // a second setting is harmless
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        int8_conv_kernel<kBf16Out, kNchw>,
+        int8_conv_kernel<kBf16Out>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kConvSmem);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  int8_conv_kernel<kBf16Out, kNchw><<<grid, kConvThreads, kConvSmem, st>>>(p);
+  int8_conv_kernel<kBf16Out><<<grid, kConvThreads, kConvSmem, st>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int pd_quantize_act(const void* x, int is_bf16, int B, int C,
-                               int S, int channels_last, float* amax_scratch,
+                               int S, float* amax_scratch,
                                const float* amax_static, float* calib,
                                void* q, float* ax, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t n = (size_t)B * C * S;
   if (is_bf16)
-    launch_quant<bf16>(x, B, C, S, channels_last, amax_scratch, amax_static,
-                       calib, q, ax, st);
+    launch_quant<bf16>(x, n, amax_scratch, amax_static, calib, q, ax, st);
   else
-    launch_quant<float>(x, B, C, S, channels_last, amax_scratch,
-                        amax_static, calib, q, ax, st);
+    launch_quant<float>(x, n, amax_scratch, amax_static, calib, q, ax, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -960,7 +803,7 @@ extern "C" int pd_int8_conv(const void* x, const void* w, const float* ax,
                             const float* ks, const float* bias, void* out,
                             int* ws, int B, int H, int W, int Cin, int N,
                             int KH, int KW, int stride, int pad, int out_bf16,
-                            int out_nchw, const int* plan, void* stream) {
+                            const int* plan, void* stream) {
   ConvParams p;
   const int chunk = plan[0];
   p.ax = ax;
@@ -1024,12 +867,7 @@ extern "C" int pd_int8_conv(const void* x, const void* w, const float* ax,
   }
   if (!ok) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (out_bf16)
-    e = out_nchw ? launch_conv<true, true>(p, grid, st)
-                 : launch_conv<true, false>(p, grid, st);
-  else
-    e = out_nchw ? launch_conv<false, true>(p, grid, st)
-                 : launch_conv<false, false>(p, grid, st);
+  const cudaError_t e = out_bf16 ? launch_conv<true>(p, grid, st)
+                                 : launch_conv<false>(p, grid, st);
   return static_cast<int>(e);
 }

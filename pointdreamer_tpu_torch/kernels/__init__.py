@@ -68,9 +68,9 @@ _SIGNATURES = {
     "pd_groupnorm_limits": [_P],
     "pd_groupnorm_max_clusters": [_I, _I, _I],
     "pd_winograd_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "pd_quantize_act": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "pd_quantize_act": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "pd_int8_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _I, _I, _P, _P],
+                     _I, _I, _I, _P, _P],
 }
 
 

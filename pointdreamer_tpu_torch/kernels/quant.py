@@ -6,8 +6,9 @@ The JAX package computes both inside QConv8 / QDense8
 `conv_general_dilated` / `dot_general` (:95-100, :123-124); there is no
 Pallas kernel.  The port's kernels are csrc/quant.cu.
 
-`quantize_act(x, ...)`: x bf16/fp32, [B, C, *spatial] (NCHW) or, with
-`channels_last`, [B, *spatial, C] -> (xq int8 [B, S, C], ax fp32 [1]) with
+`quantize_act(x, ...)`: x bf16/fp32, channels last [B, *spatial, C] (the
+torso's NHWC view, the attention's [b, t, c]) -> (xq int8 [B, S, C], ax
+fp32 [1]) with
 ax = max(amax, 1e-12) / 127 and xq = clip(round(x / ax), -127, 127)
 (round half to even).  amax is max |x| (dynamic), or `static_amax`, a
 one-element device view into a table of per-step scales; with
@@ -16,8 +17,8 @@ Nothing is read back to the host.
 
 `int8_conv(xq, wq, ax, ks, bias, ...)`: xq int8 [B, H, W, Cin], wq int8
 [N, kh, kw, Cin] (or [N, kh*kw*Cin]), ks and bias fp32 [N] ->
-acc.float() * (ax * ks) + bias in `out_dtype`, NCHW [B, N, Ho, Wo] or, with
-`rows`, [B*Ho*Wo, N]; acc the exact int32 sum.  3x3 pad 1 (stride 1 or 2)
+acc.float() * (ax * ks) + bias in `out_dtype`, rows [B*Ho*Wo, N] (NHWC);
+acc the exact int32 sum.  3x3 pad 1 (stride 1 or 2)
 and 1x1 pad 0 stride 1 on the card, Cin % 32 == 0; the plain version takes
 any.  `conv_plan` is the kernel's launch plan (K chunk and swizzle, the
 output box of an M tile, tiles, split-K, grid), a plain function so that
@@ -57,27 +58,24 @@ def quantize(xf: torch.Tensor, ax: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(xf / ax), -QMAX, QMAX).to(torch.int8)
 
 
-def _act_dims(x: torch.Tensor, channels_last: bool) -> Tuple[int, int, int]:
+def _act_dims(x: torch.Tensor) -> Tuple[int, int, int]:
     if x.dim() < 2:
-        raise ValueError(f"quantize_act wants [B, C, ...] or [B, ..., C], "
-                         f"got {tuple(x.shape)}")
-    B = x.shape[0]
-    C = x.shape[-1] if channels_last else x.shape[1]
+        raise ValueError(f"quantize_act wants [B, ..., C], got "
+                         f"{tuple(x.shape)}")
+    B, C = x.shape[0], x.shape[-1]
     return B, C, x.numel() // max(B * C, 1)
 
 
-def quantize_act_plain(x: torch.Tensor, channels_last: bool = False,
+def quantize_act_plain(x: torch.Tensor,
                        static_amax: Optional[torch.Tensor] = None,
                        calib_out: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    B, C, S = _act_dims(x, channels_last)
+    B, C, S = _act_dims(x)
     xf = x.float()
     amax = (xf.abs().amax() if static_amax is None
             else static_amax.reshape(()).float())
     ax = act_scale(amax)
-    q = quantize(xf, ax)
-    q = (q.reshape(B, S, C) if channels_last
-         else q.reshape(B, C, S).transpose(1, 2).contiguous())
+    q = quantize(xf, ax).reshape(B, S, C)
     if calib_out is not None:
         calib_out.copy_(amax.reshape(calib_out.shape))
     return q, ax.reshape(1)
@@ -87,13 +85,13 @@ def _aligned(*ts: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
-def quantize_act(x: torch.Tensor, channels_last: bool = False,
+def quantize_act(x: torch.Tensor,
                  static_amax: Optional[torch.Tensor] = None,
                  calib_out: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K7 wrapper (see the module docstring)."""
     if x.device.type == "cpu":
-        return quantize_act_plain(x, channels_last, static_amax, calib_out)
+        return quantize_act_plain(x, static_amax, calib_out)
     x = x.contiguous()
     require_cuda_tensor(x, "x", x.dtype)
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -107,14 +105,14 @@ def quantize_act(x: torch.Tensor, channels_last: bool = False,
                                  f"on {t.device}")
     if not _aligned(x):
         raise ValueError("x: expected a 16-byte aligned tensor")
-    B, C, S = _act_dims(x, channels_last)
+    B, C, S = _act_dims(x)
     q = torch.empty((B, S, C), dtype=torch.int8, device=x.device)
     ax = torch.empty(1, dtype=torch.float32, device=x.device)
     scratch = (torch.empty(1, dtype=torch.float32, device=x.device)
                if static_amax is None else None)
     check(lib().pd_quantize_act(
         x.data_ptr(), int(x.dtype == torch.bfloat16), B, C, S,
-        int(channels_last), scratch.data_ptr() if scratch is not None else 0,
+        scratch.data_ptr() if scratch is not None else 0,
         static_amax.data_ptr() if static_amax is not None else 0,
         calib_out.data_ptr() if calib_out is not None else 0,
         q.data_ptr(), ax.data_ptr(), stream_ptr(x.device)), "quantize_act")
@@ -157,12 +155,10 @@ def int8_conv_acc_plain(xq: torch.Tensor, wq: torch.Tensor, kh: int = 3,
 def int8_conv_plain(xq: torch.Tensor, wq: torch.Tensor, ax: torch.Tensor,
                     ks: torch.Tensor, bias: torch.Tensor, kh: int = 3,
                     kw: int = 3, stride: int = 1, pad: int = 1,
-                    out_dtype=torch.float32, rows: bool = False
-                    ) -> torch.Tensor:
+                    out_dtype=torch.float32) -> torch.Tensor:
     acc = int8_conv_acc_plain(xq, wq, kh, kw, stride, pad)
     y = acc.float() * (ax.reshape(()) * ks) + bias
-    y = y.to(out_dtype)
-    return y.reshape(-1, y.shape[-1]) if rows else y.permute(0, 3, 1, 2)
+    return y.to(out_dtype).reshape(-1, y.shape[-1])
 
 
 # K8's output tile (pixels x channels), its SM count default (an H100
@@ -285,12 +281,12 @@ def _sm_count(index: int) -> int:
 
 def int8_conv(xq: torch.Tensor, wq: torch.Tensor, ax: torch.Tensor,
               ks: torch.Tensor, bias: torch.Tensor, kh: int = 3, kw: int = 3,
-              stride: int = 1, pad: int = 1, out_dtype=torch.float32,
-              rows: bool = False) -> torch.Tensor:
+              stride: int = 1, pad: int = 1, out_dtype=torch.float32
+              ) -> torch.Tensor:
     """K8 wrapper (see the module docstring)."""
     if xq.device.type == "cpu":
         return int8_conv_plain(xq, wq, ax, ks, bias, kh, kw, stride, pad,
-                               out_dtype, rows)
+                               out_dtype)
     B, H, W, Cin, N, Ho, Wo = _conv_dims(xq, wq, kh, kw, stride, pad)
     require_cuda_tensor(xq, "xq", torch.int8, 4)
     require_cuda_tensor(wq, "wq", torch.int8)
@@ -308,8 +304,7 @@ def int8_conv(xq: torch.Tensor, wq: torch.Tensor, ax: torch.Tensor,
                          f"pixels, got {M}")
     plan = conv_plan(B, H, W, Cin, N, kh, kw, stride, pad,
                      _sm_count(xq.device.index or 0))
-    out = torch.empty((M, N) if rows else (B, N, Ho, Wo), dtype=out_dtype,
-                      device=xq.device)
+    out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
     ws = None
     if plan.splits > 1:      # each split's partial sums, then the counters
         tiles = plan.m_tiles * plan.n_tiles
@@ -321,7 +316,7 @@ def int8_conv(xq: torch.Tensor, wq: torch.Tensor, ax: torch.Tensor,
         xq.data_ptr(), wq.data_ptr(), ax.data_ptr(), ks.data_ptr(),
         bias.data_ptr(), out.data_ptr(), ws.data_ptr() if ws is not None
         else 0, B, H, W, Cin, N, kh, kw, stride, pad,
-        int(out_dtype == torch.bfloat16), int(not rows), c_plan,
-        stream_ptr(xq.device)), "int8_conv")
+        int(out_dtype == torch.bfloat16), c_plan, stream_ptr(xq.device)),
+        "int8_conv")
     count_launch("int8_conv")
     return out

@@ -10,6 +10,12 @@ it is: `time_embed.{0,2}`, `input_blocks.{i}.{j}...`, `middle_block.{j}`,
 
 Numerics follow the JAX package: the torso computes in `dtype` (bf16 on
 the card), GroupNorm (32 groups) in fp32, the final norm + conv in fp32.
+The torso's activations are channels last in memory (NCHW shapes over
+NHWC storage, the public layout's own), so the convolutions need no
+transposes and each GroupNorm, with the ResBlock's scale-shift and the
+SiLU after it, is one K5 launch (`kernels.groupnorm.fused_groupnorm`) on
+the [B, H*W, C] view; where autograd needs the norm's gradient, or its
+groups are not 32 whole ones (a tp shard), it runs the unfused chain.
 Each conv and linear casts its input, weight and bias to the compute dtype
 at use, as flax does, so the parameters may be stored in it (inference:
 `set_compute_dtype(bf16)`) or kept fp32 for training
@@ -37,6 +43,7 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...kernels.groupnorm import GROUPS, fused_groupnorm
 from ...kernels.quant import act_scale, int8_conv, quantize, quantize_act
 from ...ops.image import resize_linear_hwc
 from ...parallel.mesh import (all_reduce, copy_to_tp, reduce_from_tp, rows,
@@ -93,10 +100,39 @@ def unet_plan(model_channels=256, num_res_blocks=2,
     return input_plan, middle_plan, output_plan
 
 
-def _group_norm(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
-    """GroupNorm32 in fp32 (the output stays fp32)."""
-    return F.group_norm(x.float(), norm.num_groups, norm.weight.float(),
-                        norm.bias.float(), norm.eps)
+def _fused_norm_ok(norm: nn.GroupNorm, x: torch.Tensor,
+                   ss: Optional[torch.Tensor]) -> bool:
+    """Whether K5 can take the norm: its 32 groups (not a tp shard's
+    32 / tp) and no gradient to carry (K5 has no backward)."""
+    return norm.num_groups == GROUPS and not (torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (x, norm.weight, norm.bias, ss)))
+
+
+def _norm_act(norm: nn.GroupNorm, x: torch.Tensor,
+              ss: Optional[torch.Tensor] = None, silu: bool = True,
+              out_dtype=torch.bfloat16) -> torch.Tensor:
+    """GroupNorm32 (fp32 statistics) of x [B, C, *spatial], then with `ss`
+    [1 or B, 2C] (scale, shift) y * (1 + scale) + shift, then the SiLU, in
+    `out_dtype`.  One K5 launch on the channels-last view [B, S, C] (free
+    when x is channels last in memory), the result a channels-last view
+    of x's shape; else the unfused chain: the norm in fp32, cast, the
+    scale-shift in `out_dtype` (the JAX package's order)."""
+    if _fused_norm_ok(norm, x, ss):
+        b, c = x.shape[:2]
+        xl = x.movedim(1, -1)
+        if ss is not None:
+            ss = ss.expand(b, 2 * c).float().contiguous()
+        y = fused_groupnorm(xl.reshape(b, -1, c), norm.weight, norm.bias, ss,
+                            silu=silu, eps=norm.eps, out_dtype=out_dtype)
+        return y.view(xl.shape).movedim(-1, 1)
+    h = F.group_norm(x.float(), norm.num_groups, norm.weight.float(),
+                     norm.bias.float(), norm.eps).to(out_dtype)
+    if ss is not None:
+        scale, shift = ss.reshape(ss.shape + (1,) * (x.dim() - 2)).chunk(
+            2, dim=1)
+        h = h * (1 + scale) + shift
+    return F.silu(h) if silu else h
 
 
 @dataclass(frozen=True)
@@ -137,7 +173,10 @@ class QConv8(nn.Module):
     [Cout, kh, kw, Cin], `kernel_s` fp32 [Cout] (per-output-channel
     max |w| / 127), `bias` fp32 [Cout]; K7 quantizes the input with a
     per-tensor scale, K8 convolves in int32 and dequantizes to the compute
-    dtype.  Writes NCHW, or rows [B*Ho*Wo, Cout] (`rows=True`)."""
+    dtype.  A torso input [B, C, H, W] is read as its NHWC view (no copy
+    when it is channels last in memory) and K8 writes rows, so the output
+    [B, Cout, Ho, Wo] is channels last too.  A dense layer reads [B, T, C]
+    and writes rows [B*T, Cout]."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 1, device=None):
@@ -153,28 +192,31 @@ class QConv8(nn.Module):
                                  requires_grad=False)
         self.site = -1                       # set by the UNetModel
 
-    def forward(self, x, dtype, scales: ActScales = DYNAMIC,
-                channels_last: bool = False, rows: bool = False):
+    def forward(self, x, dtype, scales: ActScales = DYNAMIC):
         static = scales.slot(self.site) if scales.mode == "static" else None
         calib = scales.slot(self.site) if scales.mode == "collect" else None
         if static is None and scales.group is not None:
             static = all_reduce(x.abs().amax().float().reshape(1),
                                 scales.group, dist.ReduceOp.MAX)
-        xq, ax = quantize_act(x, channels_last, static, calib)
-        # an NCHW conv input keeps its H x W; a dense layer's rows are
-        # B x S x 1 pixels
-        h, w = (x.shape[2], x.shape[3]) \
-            if x.dim() == 4 and not channels_last else (xq.shape[1], 1)
+        # NHWC; a dense layer's rows are B x T x 1 pixels
+        xl = x.permute(0, 2, 3, 1) if x.dim() == 4 else x[:, :, None]
+        b, h, w = xl.shape[:3]
         k = self.kernel_size
-        return int8_conv(xq.view(x.shape[0], h, w, -1),
-                         self.kernel_q.view(self.kernel_q.shape[0], -1), ax,
-                         self.kernel_s, self.bias, k, k, self.stride,
-                         self.padding, dtype, rows)
+        xq, ax = quantize_act(xl, static, calib)
+        y = int8_conv(xq.view(b, h, w, -1),
+                      self.kernel_q.view(self.kernel_q.shape[0], -1), ax,
+                      self.kernel_s, self.bias, k, k, self.stride,
+                      self.padding, dtype)
+        if x.dim() == 3:
+            return y
+        ho, wo = [(n + 2 * self.padding - k) // self.stride + 1
+                  for n in (h, w)]
+        return y.view(b, ho, wo, -1).permute(0, 3, 1, 2)
 
 
 class QDense8(QConv8):
     """w8a8 dense layer (the attention's qkv / proj), a 1x1 QConv8 over
-    [B, C, T] (or channels last [B, T, C]); `kernel_q` [Cout, 1, 1, Cin]."""
+    [B, T, C] to rows [B*T, Cout]; `kernel_q` [Cout, 1, 1, Cin]."""
 
     def __init__(self, cin: int, cout: int, device=None):
         super().__init__(cin, cout, 1, 1, 0, device)
@@ -229,7 +271,7 @@ class ResBlock(nn.Module):
                                 else nn.Conv2d(channels, out_channels, 1))
 
     def forward(self, x, emb, dtype, scales: ActScales = DYNAMIC):
-        h = F.silu(_group_norm(self.in_layers[0], x).to(dtype))
+        h = _norm_act(self.in_layers[0], x, out_dtype=dtype)
         if self.up:
             h, x = _nearest_up2(h), _nearest_up2(x)
         elif self.down:
@@ -239,28 +281,24 @@ class ResBlock(nn.Module):
             h = copy_to_tp(h, tp)
         h = _conv(self.in_layers[2], h, dtype, scales)
         emb_out = _linear(self.emb_layers[1], F.silu(emb), dtype)
-        emb_out = emb_out[:, :, None, None]
         if tp is not None:
             # emb stays replicated: this rank's channels of each half
             emb_out = copy_to_tp(emb_out, tp)
             sl = rows(self.out_layers[0].num_channels * tp.size, tp)
+            emb_out = torch.cat([e[:, sl] for e in emb_out.chunk(
+                1 + self.use_scale_shift_norm, dim=1)], dim=1)
         if self.use_scale_shift_norm:
-            scale, shift = emb_out.chunk(2, dim=1)
-            if tp is not None:
-                scale, shift = scale[:, sl], shift[:, sl]
-            h = _group_norm(self.out_layers[0], h).to(dtype) * (1 + scale) \
-                + shift
+            h = _norm_act(self.out_layers[0], h, emb_out, out_dtype=dtype)
         else:
-            if tp is not None:
-                emb_out = emb_out[:, sl]
-            h = _group_norm(self.out_layers[0], h + emb_out).to(dtype)
+            h = _norm_act(self.out_layers[0], h + emb_out[:, :, None, None],
+                          out_dtype=dtype)
         if tp is not None:               # out_conv row-parallel
             conv = self.out_layers[3]
-            h = reduce_from_tp(F.conv2d(F.silu(h), conv.weight.to(dtype),
-                                        None, conv.stride, conv.padding), tp)
+            h = reduce_from_tp(F.conv2d(h, conv.weight.to(dtype), None,
+                                        conv.stride, conv.padding), tp)
             h = h + conv.bias.to(dtype)[:, None, None]
         else:
-            h = _conv(self.out_layers[3], F.silu(h), dtype, scales)
+            h = _conv(self.out_layers[3], h, dtype, scales)
         if not isinstance(self.skip_connection, nn.Identity):
             x = _conv(self.skip_connection, x, dtype, scales)
         return x.to(dtype) + h
@@ -282,22 +320,23 @@ class AttentionBlock(nn.Module):
 
     def forward(self, x, dtype, scales: ActScales = DYNAMIC):
         b, c, hh, ww = x.shape
-        y = _group_norm(self.norm, x.reshape(b, c, hh * ww)).to(dtype)
+        # [b,t,c]: a view of the norm's output, contiguous where it is
+        # channels last (K5), transposed where the chain wrote NCHW
+        y = _norm_act(self.norm, x, silu=False, out_dtype=dtype).reshape(
+            b, c, hh * ww).transpose(1, 2)
         if isinstance(self.qkv, QDense8):
-            # K8 writes qkv as rows (K2's packed [b,t,3c]) and proj as NCHW
-            qkv = self.qkv(y, dtype, scales, rows=True).view(
-                b, hh * ww, 3 * c)
+            # K8 writes qkv as rows (K2's packed [b,t,3c]), proj as rows
+            # (the block's channels-last output)
+            qkv = self.qkv(y, dtype, scales).view(b, hh * ww, 3 * c)
             a = attention_qkv(qkv, self.num_heads)            # [b,t,c]
-            out = self.proj_out(a, dtype, scales,
-                                channels_last=True)           # [b,c,t]
-            return x + out.reshape(b, c, hh, ww).to(x.dtype)
-        y = y.transpose(1, 2)                                  # [b,t,c]
+            out = self.proj_out(a, dtype, scales)             # [b*t,c]
+            return x + out.view(b, hh, ww, c).permute(0, 3, 1, 2).to(x.dtype)
         tp = self.tp
         if tp is not None:    # qkv column (local heads), proj_out row
             y = copy_to_tp(y, tp)
         qkv = F.linear(y, self.qkv.weight[:, :, 0].to(dtype),
                        self.qkv.bias.to(dtype))
-        a = attention_qkv(qkv.contiguous(), self.num_heads)   # [b,t,c/tp]
+        a = attention_qkv(qkv, self.num_heads)                # [b,t,c/tp]
         if tp is not None:
             out = reduce_from_tp(F.linear(
                 a, self.proj_out.weight[:, :, 0].to(dtype)), tp) \
@@ -305,7 +344,7 @@ class AttentionBlock(nn.Module):
         else:
             out = F.linear(a, self.proj_out.weight[:, :, 0].to(dtype),
                            self.proj_out.bias.to(dtype))
-        return x + out.transpose(1, 2).reshape(b, c, hh, ww).to(x.dtype)
+        return x + out.reshape(b, hh, ww, c).permute(0, 3, 1, 2).to(x.dtype)
 
 
 class Downsample(nn.Module):
@@ -421,7 +460,9 @@ class UNetModel(nn.Module):
         fp32.  The torso's conv/linear weights are stored in `dtype`
         (inference), or, with `keep_fp32_params`, kept fp32 and cast at
         each use, as flax keeps them (training: Adam's lr-sized updates
-        vanish in bf16 master weights)."""
+        vanish in bf16 master weights).  Stored for inference, every 2-d
+        conv's weight is channels last, the activations' layout (cuDNN
+        would copy it to that layout at each call)."""
         self.dtype = dtype
         if keep_fp32_params:
             return self
@@ -429,6 +470,9 @@ class UNetModel(nn.Module):
             if isinstance(mod, (nn.Conv2d, nn.Conv1d, nn.Linear)) \
                     and not name.startswith("out."):
                 mod.to(dtype)
+            if isinstance(mod, nn.Conv2d):
+                mod.weight.data = mod.weight.data.contiguous(
+                    memory_format=torch.channels_last)
         return self
 
     @staticmethod
@@ -441,7 +485,8 @@ class UNetModel(nn.Module):
 
     def _encode(self, x: torch.Tensor, timesteps: torch.Tensor,
                 scales: ActScales = DYNAMIC, keep_skips: bool = True):
-        """The input and middle blocks: (h NCHW, the skips, emb)."""
+        """The input and middle blocks: (h [N, C, H, W], channels last in
+        memory as every block's output, the skips, emb)."""
         if scales.table is not None and scales.table.shape[0] != self.n_sites:
             raise ValueError(f"scale table {tuple(scales.table.shape)} for "
                              f"{self.n_sites} sites")
@@ -471,7 +516,7 @@ class UNetModel(nn.Module):
             h = torch.cat([h, hs.pop()], dim=1)
             for mod in mods:
                 h = self._run(mod, h, emb, dt, scales)
-        h = F.silu(_group_norm(self.out[0], h))
+        h = _norm_act(self.out[0], h, out_dtype=torch.float32)
         h = _conv(self.out[2], h, torch.float32)
         return h.permute(0, 2, 3, 1)
 
@@ -578,7 +623,7 @@ class EncoderUNetModel(UNetModel):
                 timesteps: torch.Tensor) -> torch.Tensor:
         """x [N, H, W, C] float, timesteps [N] -> logits [N, out] fp32."""
         h, _, _ = self._encode(x, timesteps, keep_skips=False)
-        h = F.silu(_group_norm(self.out[0], h))
+        h = _norm_act(self.out[0], h, out_dtype=torch.float32)
         if self.pool == "adaptive":
             conv = self.out[3]
             return F.linear(h.mean(dim=(2, 3)),

@@ -34,12 +34,12 @@ from .kernels import BF16_OPS_PER_S, INT8_OPS_PER_S
 # kernel-name classes, first match wins
 CLASSES = (
     ("attention_qkv (K2)", r"attn_qkv|attn_mma|attn_fma"),
-    ("quantize_act (K7)", r"quant_nchw|quant_flat|absmax"),
+    ("quantize_act (K7)", r"quant_flat|absmax"),
     ("int8_conv (K8)", r"int8_conv"),
     ("layout transposes", r"nchwToNhwc|nhwcToNchw|transpose|permute"),
     ("convolution / matmul", r"conv|xmma|gemm|cutlass|nvjet|cudnn|wgrad|"
                              r"dgrad|fprop|implicit|sm90_|sm80_"),
-    ("group norm", r"[Nn]orm|Moments|FusedParams"),
+    ("group norm", r"gn_fused|[Nn]orm|Moments|FusedParams"),
     ("elementwise / copies / other", r""),
 )
 

@@ -5,12 +5,20 @@ weight randomised, carried across from the JAX package's params
 (`params_from_jax`, `encoder_params_from_jax`, `ddpm_params_from_jax`) and
 held to the JAX forward on the same inputs: within 1e-5 of the largest
 output (fp32 on the CPU, TF32 off; the same math in other summation
-orders)."""
+orders).  Then the UNet's route of its GroupNorm sites: each a fused
+K5 norm (its plain version on the CPU) over channels-last activations,
+held to the unfused chain and to the JAX forward; and the places where
+it keeps the chain (a gradient to carry, a tp shard's groups)."""
+import copy
+
 import jax
 import jax.numpy as jnp
+import math
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from pointdreamer_tpu.models.diffusion import ddpm_unet as jddpm
 from pointdreamer_tpu.models.diffusion import unet as junet
@@ -182,3 +190,185 @@ def test_builders_give_the_models_on_the_cpu():
     with torch.no_grad():
         y = d(torch.zeros((1, 16, 16, 3)), torch.zeros(1))
     assert y.shape == (1, 16, 16, 3) and float(y.abs().max()) > 0
+
+
+# ---- the K5 route: one fused norm a GroupNorm site, channels last --------
+
+def _count_fused(monkeypatch):
+    """The [B, S, C] input of each fused norm the UNet runs."""
+    calls = []
+    real = tunet.fused_groupnorm
+
+    def counted(x, *args, **kwargs):
+        calls.append(tuple(x.shape))
+        return real(x, *args, **kwargs)
+
+    monkeypatch.setattr(tunet, "fused_groupnorm", counted)
+    return calls
+
+
+def _route(on: bool):
+    """The UNet's norm route, or (`on` False) the unfused chain at every
+    site."""
+    return tunet._fused_norm_ok if on else (lambda *args: False)
+
+
+def _eps_err(got, want):
+    """The benchmark's eps_err: the largest over images of the L2 error
+    over the reference's L2 norm."""
+    d = (got - want).reshape(len(want), -1)
+    return float((np.linalg.norm(d, axis=1) / np.linalg.norm(
+        want.reshape(len(want), -1), axis=1)).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k5_route_matches_the_chain_and_jax(dtype, monkeypatch):
+    """The tiny UNet with every norm fused, against the same model with
+    every norm the unfused chain and against the JAX fp32 forward: fp32
+    within 1e-5 of the largest output (measured 2.7e-6), a bf16 torso
+    within the benchmark's tiny-UNet eps_err limit of 0.05 (measured
+    0.020 fused, 0.022 unfused); one fused norm a GroupNorm module; every
+    block's output channels last."""
+    jm = junet.UNetModel(dtype=jnp.float32, **TINY)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
+    t = np.array([3.0, 700.0], np.float32)
+    params = _randomize(jm.init(jax.random.PRNGKey(0), jnp.asarray(x),
+                                jnp.asarray(t))["params"], 5)
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x),
+                               jnp.asarray(t)))
+    tm = _load(tunet.UNetModel(**TINY), params_from_jax(params, **TINY))
+    tm = copy.deepcopy(tm).set_compute_dtype(getattr(torch, dtype))
+    blocks = [n for n, m in tm.named_modules() if isinstance(
+        m, (tunet.ResBlock, tunet.AttentionBlock))] + ["input_blocks.0.0"]
+    not_cl = []
+    for n in blocks:
+        tm.get_submodule(n).register_forward_hook(
+            lambda m, a, out, n=n: None if out.is_contiguous(
+                memory_format=torch.channels_last) else not_cl.append(n))
+    calls = _count_fused(monkeypatch)
+    outs = {}
+    for on in (True, False):
+        monkeypatch.setattr(tunet, "_fused_norm_ok", _route(on))
+        with torch.no_grad():
+            outs[on] = tm(torch.as_tensor(x), torch.as_tensor(t)).numpy()
+        if on:
+            n_norms = sum(isinstance(m, torch.nn.GroupNorm)
+                          for m in tm.modules())
+            # 10 ResBlocks, 4 attention blocks, the head
+            assert len(calls) == n_norms == 2 * 10 + 4 + 1
+    assert len(calls) == 25 and not not_cl, not_cl
+    if dtype == "float32":
+        _close(outs[True], want)
+        _close(outs[False], want)
+    else:
+        assert _eps_err(outs[True], want) <= 0.05
+        assert _eps_err(outs[False], want) <= 0.05
+        assert _eps_err(outs[True], outs[False]) <= 0.05
+
+
+@pytest.mark.parametrize("kind", ["superres", "encoder"])
+def test_k5_route_in_the_other_unets(kind, monkeypatch):
+    """SuperResModel and the classifier run the same blocks: one fused
+    norm a GroupNorm module, within 1e-5 of the unfused chain (fp32)."""
+    rng = np.random.default_rng(8)
+    x = torch.as_tensor(rng.standard_normal((2, 16, 16, 3)),
+                        dtype=torch.float32)
+    t = torch.tensor([4.0, 600.0])
+    if kind == "superres":
+        tm = tunet.SuperResModel(**TINY)
+        args = (x, t, torch.as_tensor(rng.standard_normal((2, 8, 8, 3)),
+                                      dtype=torch.float32))
+    else:
+        tm = tunet.EncoderUNetModel(out_channels=10, pool="attention",
+                                    image_size=16, **TINY)
+        args = (x, t)
+    with torch.no_grad():
+        for p in tm.parameters():
+            p.copy_(torch.randn(p.shape, dtype=torch.float64).float() * 0.2)
+    calls = _count_fused(monkeypatch)
+    with torch.no_grad():
+        got = tm(*args).numpy()
+        assert len(calls) == sum(isinstance(m, torch.nn.GroupNorm)
+                                 for m in tm.modules())
+        monkeypatch.setattr(tunet, "_fused_norm_ok", _route(False))
+        chain = tm(*args).numpy()
+    _close(got, chain)
+
+
+def test_k5_route_counts_101_sites_at_the_flagship(monkeypatch):
+    """The ImageNet-256 UNet (`unet_plan()`'s layout) on the meta device:
+    101 fused norms a forward, 84 in the 42 ResBlocks (42 with the
+    scale-shift), 16 attention norms, the head's."""
+    calls = []
+
+    def counted(x, gamma, beta, ss=None, **kwargs):
+        calls.append((tuple(x.shape), ss is not None,
+                      kwargs["out_dtype"], kwargs["silu"]))
+        return torch.empty(x.shape, dtype=kwargs["out_dtype"],
+                           device=x.device)
+
+    monkeypatch.setattr(tunet, "fused_groupnorm", counted)
+    monkeypatch.setattr(tunet, "attention_qkv", lambda qkv, heads: torch.empty(
+        qkv.shape[:2] + (qkv.shape[2] // 3,), dtype=qkv.dtype,
+        device=qkv.device))
+    with torch.device("meta"):
+        model = tunet.imagenet256_unet()
+        x = torch.empty((8, 256, 256, 3))
+        t = torch.empty((1,))
+    with torch.no_grad():
+        eps = model.set_compute_dtype(torch.bfloat16)(x, t)
+    assert eps.shape == (8, 256, 256, 6)
+    assert len(calls) == 101
+    assert sum(ss for _, ss, _, _ in calls) == 42
+    assert sum(not silu for _, _, _, silu in calls) == 16
+    assert calls[-1] == ((8, 65536, 256), False, torch.float32, True)
+    assert sum(math.prod(c[0]) for c in calls) == pytest.approx(3.20e9,
+                                                                rel=1e-2)
+
+
+@pytest.mark.parametrize("case", ["grad", "tp_groups"])
+def test_k5_route_keeps_the_chain_where_it_cannot_go(case, monkeypatch):
+    """K5 has no backward and takes 32 groups: a forward that carries
+    gradients, and a tp shard's out norm (32 / tp groups), run the chain,
+    with their gradients and the chain's outputs."""
+    calls = _count_fused(monkeypatch)
+    rng = np.random.default_rng(9)
+    if case == "grad":
+        tm = tunet.UNetModel(**TINY)
+        tunet.init_random_(tm, 3)
+        with torch.no_grad():
+            for name, p in tm.named_parameters():
+                if not p.abs().max():
+                    p.copy_(torch.randn(p.shape, dtype=torch.float64)
+                            .float() * 0.05)
+        x = torch.as_tensor(rng.standard_normal((2, 16, 16, 3)),
+                            dtype=torch.float32)
+        t = torch.tensor([10.0, 500.0])
+        got = tm(x, t)
+        got.square().mean().backward()
+        assert not calls
+        assert all(p.grad is not None and torch.isfinite(p.grad).all()
+                   and p.grad.abs().max() > 0 for p in tm.parameters())
+        with torch.no_grad():
+            fused = tm(x, t)
+        assert len(calls) == 25
+        _close(fused.numpy(), got.detach().numpy())
+        return
+    norm = torch.nn.GroupNorm(16, 64)          # tp 2 of a 64-channel norm
+    with torch.no_grad():
+        norm.weight.copy_(torch.as_tensor(rng.standard_normal(64)))
+        norm.bias.copy_(torch.as_tensor(rng.standard_normal(64)))
+    x = torch.as_tensor(rng.standard_normal((2, 64, 8, 8)),
+                        dtype=torch.float32).to(
+        memory_format=torch.channels_last)
+    ss = torch.as_tensor(rng.standard_normal((1, 128)),
+                         dtype=torch.float32).to(torch.bfloat16)
+    with torch.no_grad():
+        got = tunet._norm_act(norm, x, ss, out_dtype=torch.bfloat16)
+    assert not calls
+    want = F.group_norm(x.float(), 16, norm.weight, norm.bias, norm.eps
+                        ).to(torch.bfloat16)
+    scale, shift = ss[:, :, None, None].chunk(2, dim=1)
+    torch.testing.assert_close(got, F.silu(want * (1 + scale) + shift),
+                               rtol=0, atol=0)

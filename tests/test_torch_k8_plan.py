@@ -20,31 +20,36 @@ def _site_shapes(model_kwargs, B, res):
     forward, recorded on the meta device (no weights, no arithmetic)."""
     calls = []
 
-    def quantize_act(x, channels_last=False, static=None, calib=None):
-        b = x.shape[0]
-        c = x.shape[-1] if channels_last else x.shape[1]
+    def quantize_act(x, static=None, calib=None):
+        b, c = x.shape[0], x.shape[-1]
         return (torch.empty((b, x.numel() // (b * c), c), dtype=torch.int8,
                             device=x.device),
                 torch.empty(1, device=x.device))
 
     def int8_conv(xq, wq, ax, ks, bias, kh=3, kw=3, stride=1, pad=1,
-                  out_dtype=torch.float32, rows=False):
+                  out_dtype=torch.float32):
         b, h, w, cin = xq.shape
         n = wq.shape[0]
         ho, wo = (h + 2 * pad - kh) // stride + 1, \
             (w + 2 * pad - kw) // stride + 1
         calls.append((b, h, w, cin, n, kh, kw, stride, pad))
-        return torch.empty((b * ho * wo, n) if rows else (b, n, ho, wo),
-                           dtype=out_dtype, device=xq.device)
+        return torch.empty((b * ho * wo, n), dtype=out_dtype,
+                           device=xq.device)
 
     def attention_qkv(qkv, heads):
         b, t, c3 = qkv.shape
         return torch.empty((b, t, c3 // 3), dtype=qkv.dtype,
                            device=qkv.device)
 
-    saved = (tunet.quantize_act, tunet.int8_conv, tunet.attention_qkv)
-    tunet.quantize_act, tunet.int8_conv, tunet.attention_qkv = \
-        quantize_act, int8_conv, attention_qkv
+    def fused_groupnorm(x, gamma, beta, ss=None, **kwargs):
+        return torch.empty(x.shape, dtype=kwargs["out_dtype"],
+                           device=x.device)
+
+    saved = (tunet.quantize_act, tunet.int8_conv, tunet.attention_qkv,
+             tunet.fused_groupnorm)
+    (tunet.quantize_act, tunet.int8_conv, tunet.attention_qkv,
+     tunet.fused_groupnorm) = (quantize_act, int8_conv, attention_qkv,
+                               fused_groupnorm)
     try:
         with torch.device("meta"):
             model = tunet.UNetModel(**model_kwargs, quant=True)
@@ -53,16 +58,17 @@ def _site_shapes(model_kwargs, B, res):
         with torch.no_grad():
             model.set_compute_dtype(torch.bfloat16)(x, t)
     finally:
-        tunet.quantize_act, tunet.int8_conv, tunet.attention_qkv = saved
+        (tunet.quantize_act, tunet.int8_conv, tunet.attention_qkv,
+         tunet.fused_groupnorm) = saved
     assert len(calls) == model.n_sites
     return sorted(set(calls))
 
 
 def _smoke_shapes():
     out = []
-    for _, B, Cin, H, W, N, k, s, _rows in chip_smoke.K8_SHAPES:
+    for _, B, Cin, H, W, N, k, s in chip_smoke.K8_SHAPES:
         out.append((B, H, W, Cin, N, k, k, s, 1 if k == 3 else 0))
-    # the attention's proj: channels-last rows back to NCHW
+    # the attention's proj: [b, t, c] to rows
     out.append((8, 1024, 1, 512, 512, 1, 1, 1, 0))
     return out
 
