@@ -16,6 +16,9 @@ the program's place (`control`):
   raster_*     both: the reference z-buffer on the call's vertices and
                depths rounded to bfloat16 (they are float32);
   segsum_err   both: the reference segment sum in bfloat16 (float32).
+Each cell's entry of PAIRS gives the core its `low_dtype` and each network
+its own settings under its key (benchmark/networks/<key>.py); `from`
+takes a number's control reading from another cell's program reading.
 The control's readings are held to the cell's own limits, as a run's
 are: `control_correct` has to come out false, and `failed_by` names the
 numbers over their limits.  One JSON line a seed, then one with each
@@ -34,13 +37,14 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from pdbench import check, main as pmain, spec  # noqa: E402
+from pdbench import main as pmain, spec  # noqa: E402
 
-PAIRS = {"ddnm_bf16.c1": {"unet_bits": 0, "step_dtype": "bfloat16",
-                          "low_dtype": "bfloat16",
-                          "eps_from": "ddnm_w8a8.c1"},
-         "ddnm_w8a8.c1": {"unet_bits": 4, "step_dtype": "bfloat16",
-                          "low_dtype": "bfloat16", "eps_from": None}}
+PAIRS = {"ddnm_bf16.c1": {"low_dtype": "bfloat16",
+                          "ddnm": {"unet_bits": 0, "step_dtype": "bfloat16"},
+                          "from": {"eps_err": "ddnm_w8a8.c1"}},
+         "ddnm_w8a8.c1": {"low_dtype": "bfloat16",
+                          "ddnm": {"unet_bits": 4, "step_dtype": "bfloat16"},
+                          "from": {}}}
 
 
 def run(seeds, seconds: float, device: str, root: str, pairs=PAIRS,
@@ -64,17 +68,16 @@ def run(seeds, seconds: float, device: str, root: str, pairs=PAIRS,
                          "control": out["control"]}
         for name, ctl in pairs.items():
             r = row[name]
-            if ctl["eps_from"]:
-                r["control"]["eps_err"] = \
-                    row[ctl["eps_from"]]["program"]["eps_err"]
-            r["failed_by"] = [k for k in check.NAMES
+            for k, cell in ctl.get("from", {}).items():
+                r["control"][k] = row[cell]["program"][k]
+            r["failed_by"] = [k for k in r["limits"]
                               if not r["control"][k] <= r["limits"][k]]
             r["control_correct"] = not r["failed_by"]
         log(json.dumps(row))
         rows.append(row)
     summary = {name: {k: {"lower": max(r[name]["program"][k] for r in rows),
                           "upper": min(r[name]["control"][k] for r in rows)}
-                      for k in check.NAMES} for name in pairs}
+                      for k in rows[0][name]["limits"]} for name in pairs}
     log(json.dumps({"summary": summary}))
     return rows, summary
 

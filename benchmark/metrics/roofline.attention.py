@@ -11,7 +11,7 @@ def read(run):
     if run.trace is None:
         return None
     secs, launches = trace.kernel_time(run.trace, K2)
-    calls = run.model["attention"]
+    calls = run.counts.get("ddnm", {}).get("attention")
     if not launches or not calls:
         return None
     bound = attention.bound_s(calls, run.peaks) * launches / len(calls)

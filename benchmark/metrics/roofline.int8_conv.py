@@ -11,7 +11,8 @@ def read(run):
     if run.trace is None:
         return None
     secs, launches = trace.kernel_time(run.trace, K8)
-    sites = [c for c in run.model["convs"] if c[0]]
+    sites = [c for c in run.counts.get("ddnm", {}).get("convs", ())
+             if c[0]]
     if not launches or not sites:
         return None
     bound = int8_conv.bound_s(sites, run.peaks) * launches / len(sites)

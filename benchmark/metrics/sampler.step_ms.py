@@ -5,8 +5,6 @@ profiled shape, over those steps, reduced as `unet_forward_ms` reduces
 forwards.  The trace gives every launching host thread one id, so with
 two clients a step's launches are not told from the other client's: the
 mean is over both clients' steps."""
-import dataclasses
-
 from pdbench import spans, trace
 
 
@@ -14,6 +12,5 @@ def read(run):
     steps = spans.named(spans.within_shape(run), "inpaint.step")
     if not len(steps):
         return None
-    s = trace.forward_device_s(dataclasses.replace(
-        run.trace, forwards=[tuple(iv) for iv in steps.tolist()]))
+    s = trace.forward_device_s(run.trace, steps.tolist())
     return None if s is None else s * 1e3

@@ -17,7 +17,6 @@ from typing import Dict, List, Optional
 import numpy as np
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "pointdreamer_tpu")
-WARMUP_STEPS = 2
 
 
 def forbidden_modules() -> List[str]:
@@ -69,11 +68,11 @@ class Run:
     cell: object
     setup_s: float
     window: object
-    model: Dict[str, object]
+    counts: Dict[str, dict]           # network key -> its `counts(config)`
     peaks: Dict[str, float]
     trace: object
     peak_window_bytes: Optional[int]
-    profiled: Optional[dict] = None   # index, wall_s, forwards
+    profiled: Optional[dict] = None   # index, wall_s, forwards {key: n}
 
     def plain_shapes(self):
         """The window's shapes without the profiled one, unless it is the
@@ -81,16 +80,6 @@ class Run:
         p = self.profiled["index"] if self.profiled else None
         rest = [r for r in self.window.shapes if r.index != p]
         return rest or list(self.window.shapes)
-
-
-def model_counts(config: dict) -> Dict[str, object]:
-    """Call shapes of one UNet forward at the sampler's batch, from the
-    reference run on the meta device (benchmark/reference/flops.py)."""
-    from reference import flops
-
-    p = config["pipeline"]
-    return flops.forward_calls(config["unet"], p.get("view_num", 8),
-                               p.get("res", 256))
 
 
 def load_peaks(root: str) -> Dict[str, float]:
@@ -103,9 +92,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
              t_start: float, root: str, work: str, log=print,
              control: Optional[dict] = None) -> dict:
     """Set up, measure, check; returns the result line's object.
-    `control` {'unet_bits', 'step_dtype', 'low_dtype'}: also the
-    readings of the reference put in the program's place in those
-    precisions, under 'control' (benchmark/control.py)."""
+    `control` {'low_dtype': the core's, <network key>: that network's
+    control settings}: also the readings of the reference put in the
+    program's place in those precisions, under 'control'
+    (benchmark/control.py)."""
     import torch
 
     from . import check, clouds, loop, spec, system
@@ -116,8 +106,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     if cuda:
         log("card: {name}, power limit {power_limit}".format(**card()))
-    traffic, config = cell.traffic, cell.config
-    clients, steps = int(traffic["clients"]), int(config["ddnm"]["steps"])
+    traffic, config, nets = cell.traffic, cell.config, cell.networks
+    clients = int(traffic["clients"])
     n_clouds = clients * (math.ceil(seconds / traffic["min_shape_s"]) + 2)
     paths: Dict[int, str] = {}
 
@@ -138,22 +128,21 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     marks = {"clouds": time.perf_counter()}
     if trace and cuda:
         ptrace.init_profiler()
-    pipe = system.build(config, os.path.join(work, "out"), seed, device)
-    obs = system.Observer(pipe.inpainter, seed, steps,
-                          pipe.cfg.optimize_iters)
+    pipe = system.build(config, os.path.join(work, "out"), seed, device,
+                        nets)
+    obs = system.Observer(seed, pipe.cfg.optimize_iters)
+    closers = [net.observe(pipe, obs, config) for net in nets.values()]
     stage_log = [] if trace else None
     prof = ptrace.Profiler(0, obs, stage_log) if trace else None
-    inp = pipe.inpainter
-    if not inp.static_calib:
-        # the warm-up meets every shape and kernel of the sampler in a few
-        # steps; a w8a8 model's static calibration needs all of them
-        inp.t_sampling = min(steps, WARMUP_STEPS)
+    for net in nets.values():
+        net.warmup(pipe, config)
     marks["build"] = time.perf_counter()
     state = {}
 
     def opened():
         sync()
-        inp.t_sampling = steps
+        for net in nets.values():
+            net.opened(pipe, config)
         obs.capture = True
         if cuda:
             state["setup_peak"] = torch.cuda.max_memory_allocated()
@@ -186,18 +175,25 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     for w in win.warmup:
         if w.error:
             raise RuntimeError(f"warm-up shape failed:\n{w.error}")
+
+    def unobserved(rec):
+        return check.unobserved(rec) or next(filter(None, (
+            net.unobserved(rec.get(key)) for key, net in nets.items())),
+            None)
+
     failed = []
     for r in win.shapes:
         why = r.error or "; ".join(check.file_faults(
             r.out_dir, pipe.cfg.xatlas_texture_res)) or None
         if why is None:
-            why = check.unobserved(obs.records.get(r.index))
+            why = unobserved(obs.records.get(r.index))
         if why:
             failed.append((r.index, why))
-    records = {i: rec for i, rec in obs.records.items()
-               if i in {r.index for r in win.shapes}
-               and check.unobserved(rec) is None}
+    records = {r.index: obs.records[r.index] for r in win.shapes
+               if unobserved(obs.records.get(r.index)) is None}
     out_dirs = {r.index: r.out_dir for r in win.shapes}
+    for close in reversed(closers):
+        close()
     obs.close()
     del pipe, obs
     gc.collect()
@@ -212,30 +208,43 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
             log(f"trace: profiler stop {prof.stop_s:.3f} s, events read in "
                 f"{time.perf_counter() - t0:.3f} s; {len(tr.dev)} device "
                 f"events, {int((tr.launch[:, 0] >= 0).sum())} with their "
-                f"launch; {len(tr.forwards)} forwards; marker thread "
-                f"{tr.tid}, clock offset {tr.offset_ns} ns; launching "
+                f"launch; forwards "
+                f"{ {k: len(v) for k, v in tr.forwards.items()} }; marker "
+                f"thread {tr.tid}, clock offset {tr.offset_ns} ns; launching "
                 f"threads {dict(zip(*np.unique(tr.launch[:, 0], return_counts=True)))}")
-    run = Run(cell, state["setup_s"], win, model_counts(config),
+    run = Run(cell, state["setup_s"], win,
+              {key: net.counts(config) for key, net in nets.items()},
               load_peaks(root), prof.trace if prof else None, peak,
               prof.profiled if prof else None)
     metrics, missing = spec.read_metrics(
         cell.per_layer if trace else cell.end_to_end, run, root)
     if missing:
         log(f"metrics of this cell that read nothing: {missing}")
+
+    def readings(ctl: dict) -> Dict[str, float]:
+        """Each network's numbers on its part of the records, then the
+        core's on the rest; `ctl`: the control's settings."""
+        out = {}
+        for key, net in nets.items():
+            out.update(net.readings(
+                config, {i: rec[key] for i, rec in records.items()},
+                out_dirs, seed, device, ctl.get(key)))
+        core = {i: {k: v for k, v in rec.items() if k not in nets}
+                for i, rec in records.items()}
+        low = ctl.get("low_dtype")
+        out.update(check.readings(core, device,
+                                  low and getattr(torch, low)))
+        return out
+
     t0 = time.perf_counter()
-    numbers = check.readings(config, records, out_dirs, seed, device)
+    numbers = readings({})
     log(f"check: {len(records)} shapes in {time.perf_counter() - t0:.3f} s")
-    low = None
-    if control:
-        low = check.readings(config, records, out_dirs, seed, device,
-                             control["unet_bits"],
-                             getattr(torch, control["step_dtype"]),
-                             getattr(torch, control["low_dtype"]))
+    low = readings(control) if control else None
     limits = config["check"]
     compared = {k: {"value": numbers[k], "limit": limits[k]}
-                for k in check.NAMES}
+                for k in cell.compared}
     ok = (not failed and len(records) == len(win.shapes) > 0
-          and all(numbers[k] <= limits[k] for k in check.NAMES))
+          and all(numbers[k] <= limits[k] for k in cell.compared))
     for i, why in failed:
         log(f"shape {i} failed: {why}")
     out = {"correct": bool(ok), "attempted": len(win.shapes),

@@ -1,13 +1,16 @@
 """What a run is, found by name: the cell in BENCHMARK.json, its
-configuration's file, its traffic mix's file and one reader a metric.
+configuration's file, its traffic mix's file, one file a network of the
+configuration and one reader a metric.
 
     BENCHMARK.json                  cells, metrics, bounds
     benchmark/configs/<name>.json   a configuration (its `file` entry)
     benchmark/traffic/<mix>.json    a traffic mix
+    benchmark/networks/<key>.py     a network, used where <key> is a
+                                    top-level key of the configuration
     benchmark/metrics/<metric>.py   `read(run) -> float | None`
 
-A later cell, mix or metric is new files and new entries; nothing here
-changes for it."""
+A later cell, mix, network or metric is new files and new entries;
+nothing here changes for it."""
 from __future__ import annotations
 
 import importlib.util
@@ -30,6 +33,8 @@ class Cell:
     chips: int
     end_to_end: List[dict]
     per_layer: List[dict]
+    networks: Dict[str, object]     # key -> network module, in file order
+    compared: Tuple[str, ...]       # the networks' NAMES, then the core's
 
 
 def _applies(metric: dict, cell: str) -> bool:
@@ -52,21 +57,41 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
     with open(os.path.join(root, "benchmark", "traffic",
                            w["traffic"] + ".json")) as f:
         traffic = json.load(f)
+    networks = {key: _module("networks", key, root) for key in config
+                if os.path.exists(_path("networks", key, root))}
+    from . import check
+
+    compared = tuple(n for net in networks.values() for n in net.NAMES) \
+        + check.NAMES
+    unlimited = [n for n in compared if n not in config.get("check", {})]
+    if unlimited:
+        raise KeyError(f"{cfg_entry['file']}: `check` has no limit for "
+                       f"{unlimited}")
     return Cell(name, w["config"], config, w["traffic"], traffic,
                 int(w["chips"]),
                 [m for m in bench["end_to_end"] if _applies(m, name)],
-                [m for m in bench["per_layer"] if _applies(m, name)])
+                [m for m in bench["per_layer"] if _applies(m, name)],
+                networks, compared)
+
+
+def _path(kind: str, name: str, root: str) -> str:
+    return os.path.join(root, "benchmark", kind, name + ".py")
+
+
+def _module(kind: str, name: str, root: str):
+    """benchmark/<kind>/<name>.py, loaded from its path."""
+    spec = importlib.util.spec_from_file_location(
+        f"pdbench_{kind}_" + name.replace(".", "_").replace("-", "_"),
+        _path(kind, name, root))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def reader(metric: str, root: str = ROOT
            ) -> Callable[[object], Optional[float]]:
     """`read` of benchmark/metrics/<metric>.py."""
-    path = os.path.join(root, "benchmark", "metrics", metric + ".py")
-    spec = importlib.util.spec_from_file_location(
-        "pdbench_metric_" + metric.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _module("metrics", metric, root).read
 
 
 def read_metrics(metrics: List[dict], run, root: str = ROOT

@@ -4,7 +4,7 @@ reductions the per-layer readers make of it.
 Only device activity is traced: each device event (kernel, copy, set)
 and the CUDA runtime call that launched it, which gives the launching
 thread and the host time of the launch.  The harness keeps its own
-ranges on the host clock (the profiled shape, its stages, its UNet
+ranges on the host clock (the profiled shape, its stages, its networks'
 forwards) and moves them onto the trace's clock by two marker kernels
 launched at known host times."""
 from __future__ import annotations
@@ -31,8 +31,9 @@ class Trace:
     lo: int                          # the profiled shape's start and end
     hi: int
     stages: List[Tuple[str, int, int]] = field(default_factory=list)
-    forwards: List[Tuple[int, int]] = field(default_factory=list)  # of
-    #                                  every client, within the shape
+    forwards: Dict[str, List[Tuple[int, int]]] = field(
+        default_factory=dict)        # by network key: of every client,
+    #                                  within the shape
     offset_ns: int = 0               # trace clock minus host clock
 
     def shape(self) -> Tuple[int, int, int]:
@@ -56,8 +57,8 @@ def from_profile(prof, host: dict) -> Trace:
     activity only), each tied to its launch (the CUDA runtime call with
     its correlation id: thread and host time), and the harness's host
     ranges `host` {markers: [ns], shape: (t0, t1), stages: [(name, t0,
-    t1)], forwards: [(t0, t1)]} moved onto the trace's clock by the
-    marker kernels launched at known host times."""
+    t1)], forwards: {key: [(t0, t1)]}} moved onto the trace's clock by
+    the marker kernels launched at known host times."""
     from torch.autograd import DeviceType
 
     names, idx, dev, corrs = [], {}, [], []
@@ -95,7 +96,8 @@ def from_profile(prof, host: dict) -> Trace:
     t0, t1 = host["shape"]
     return Trace(names, dev, launch, tid, t0 + offset, t1 + offset,
                  [(n, a + offset, b + offset) for n, a, b in host["stages"]],
-                 [(a + offset, b + offset) for a, b in host["forwards"]],
+                 {k: [(a + offset, b + offset) for a, b in iv]
+                  for k, iv in host["forwards"].items()},
                  offset)
 
 
@@ -162,19 +164,20 @@ def kernel_time(tr: Trace, pattern: str) -> Tuple[float, int]:
     return float((d[:, 1] - d[:, 0]).sum()) * 1e-9, int(sel.sum())
 
 
-def forward_device_s(tr: Trace) -> Optional[float]:
-    """Mean device seconds of a UNet forward: the device events launched
-    while some client's forward ran (within the profiled shape), over
-    those forwards.  With two clients, a launch of one client's other
-    stages during the other's forward counts too (a small share)."""
-    if not tr.forwards or not len(tr.dev):
+def forward_device_s(tr: Trace, forwards) -> Optional[float]:
+    """Mean device seconds of a forward: the device events launched while
+    one of `forwards` [(start, end)] (of some client, on the trace's
+    clock) ran, over those forwards.  With two clients, a launch of one
+    client's other stages during the other's forward counts too (a small
+    share)."""
+    if not forwards or not len(tr.dev):
         return None
-    iv = union(np.array(tr.forwards, np.int64))
+    iv = union(np.array(forwards, np.int64))
     at = tr.launch[:, 1]
     k = np.searchsorted(iv[:, 0], at, side="right") - 1
     inside = (at >= 0) & (k >= 0) & (at <= iv[np.clip(k, 0, None), 1])
     total = float((tr.dev[inside, 1] - tr.dev[inside, 0]).sum()) * 1e-9
-    return total / len(tr.forwards) if total > 0 else None
+    return total / len(forwards) if total > 0 else None
 
 
 def init_profiler() -> None:
@@ -202,9 +205,9 @@ class Profiler:
     host-op recording, which would slow the host); `finish` reads the
     events into a `Trace` once the window has closed.  The harness's own
     ranges are host times: the shape's, its thread's stages (from the
-    stage timer) and UNet forwards (from the observer).  `profiled`: the
-    shape's index, its wall seconds and the UNet forwards of any client
-    that ended in it (for `mfu`)."""
+    stage timer) and the networks' forwards (from the observer).
+    `profiled`: the shape's index, its wall seconds and, by network key,
+    the forwards of any client that ran within it (for `mfu`)."""
 
     def __init__(self, index: int, observer, stage_log: list):
         self.index, self.observer, self.stage_log = index, observer, stage_log
@@ -238,14 +241,17 @@ class Profiler:
             prof.stop()
             self.stop_s = (time.time_ns() - t1) * 1e-9
         self._prof = prof
-        inside = [(a, b) for _, a, b in log if t0 <= a and b <= t1]
+        inside: Dict[str, List[Tuple[int, int]]] = {}
+        for key, _, a, b in log:
+            if t0 <= a and b <= t1:
+                inside.setdefault(key, []).append((a, b))
         self._host = {
             "markers": marks, "shape": (t0, t1),
             "stages": [(n, a, b) for i, n, a, b in self.stage_log
                        if i == index],
             "forwards": inside}
         self.profiled = {"index": index, "wall_s": (t1 - t0) * 1e-9,
-                         "forwards": len(inside)}
+                         "forwards": {k: len(v) for k, v in inside.items()}}
 
     def finish(self) -> None:
         if self._prof is not None:

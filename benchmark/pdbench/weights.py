@@ -1,13 +1,14 @@
-"""The UNet's weights, made on the device from the run's seed.
+"""A network's weights, made on the device from the run's seed (the
+DDNM network's UNet: benchmark/networks/ddnm.py).
 
 One float32 draw from a CUDA generator covers every parameter, in the
 order of the reference model's state dict, and each parameter is a slice
 of it scaled in place: convolution and linear weights by fan_in^-1/2,
 biases and norm shifts by 0.1, norm scales 1 + 0.1 N(0, 1).  No layer is
-zero (the published initialisation zeroes the residual convs and the
-output conv, which would make every noise estimate 0).  The same seed on
-the same device gives the same bits, so the program and the reference
-each get the weights made anew from it.
+zero (the UNet's published initialisation zeroes the residual convs and
+the output conv, which would make every noise estimate 0).  The same
+seed on the same device gives the same bits, so the program and the
+reference each get the weights made anew from it.
 """
 from __future__ import annotations
 

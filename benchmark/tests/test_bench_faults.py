@@ -155,7 +155,7 @@ def test_control_reads_above_the_program(root):
     import control
 
     pairs = {"tiny.c1": dict(control.PAIRS["ddnm_bf16.c1"],
-                             eps_from="tinyq.c1"),
+                             **{"from": {"eps_err": "tinyq.c1"}}),
              "tinyq.c1": control.PAIRS["ddnm_w8a8.c1"]}
     rows, summary = control.run([21, 22], 0.5, "cpu", root, pairs,
                                 log=lambda s: None)

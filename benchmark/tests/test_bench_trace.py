@@ -19,7 +19,7 @@ def make():
     launch = np.array([[7, 12], [7, 41], [7, 101], [9, 151], [7, 499],
                        [7, 901], [7, 1301]], np.int64)
     stages = [("geometry", 0, 300), ("inpaint", 300, 1000)]
-    forwards = [(0, 150), (450, 620)]
+    forwards = {"net": [(0, 150), (450, 620)]}
     return trace.Trace(names, dev, launch, 7, 0, 1000, stages, forwards)
 
 
@@ -53,7 +53,8 @@ def test_kernel_time_and_ops():
 def test_forward_device_time():
     """The forwards [0, 150] and [450, 620] hold the launches at 12, 41,
     101, 151 (40 + 20 + 100 ns; 151 is past the first) and 499 (100 ns)."""
-    s = trace.forward_device_s(make())
+    tr = make()
+    s = trace.forward_device_s(tr, tr.forwards["net"])
     assert s == pytest.approx((40 + 20 + 100 + 100) * 1e-9 / 2)
 
 
@@ -107,13 +108,16 @@ def test_from_profile_moves_host_ranges_by_the_markers():
 
     # the first marker's launch was not recorded: one is enough
     host = {"markers": [5, 905], "shape": (50, 900),
-            "stages": [("inpaint", 60, 890)], "forwards": [(90, 130)]}
+            "stages": [("inpaint", 60, 890)],
+            "forwards": {"net": [(90, 130)]}}
     tr = trace.from_profile(Prof, host)
     assert tr.offset_ns == 1000 and tr.tid == 42
     assert (tr.lo, tr.hi) == (1050, 1900)
     assert tr.stages == [("inpaint", 1060, 1890)]
     assert tr.launch.tolist()[:2] == [[42, 1100], [43, 1120]]
     # both launches fall inside the forward [1090, 1130]
-    assert trace.forward_device_s(tr) == pytest.approx(70e-9)
+    assert tr.forwards == {"net": [(1090, 1130)]}
+    assert trace.forward_device_s(tr, tr.forwards["net"]) == \
+        pytest.approx(70e-9)
     busy, _ = trace.busy_in(tr, tr.lo, tr.hi)
     assert busy == pytest.approx(70e-9)
